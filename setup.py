@@ -14,6 +14,7 @@ setup(
     entry_points={
         "console_scripts": [
             "lime-tpu = lime_tpu.cli:main",
+            "lime-tpu-torch = lime_tpu_torch.cli:main",
         ],
     },
 )
