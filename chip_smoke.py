@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py [--pairs N]
 
-Phases, one line each; any failure raises and the exit code is non-zero:
+Phases, one line each (with its time); any failure raises and the exit
+code is non-zero:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
-2. build: compile (nvcc, sm_90a) and load the pair-hit kernels;
+2. build: compile (one nvcc per CUDA source, sm_90a, all at once) and
+   load the pair-hit kernels and the banded kernel K3;
 3. kernels: each pair-hit kernel against its plain torch version on
    planner-shaped streams (1M rows, seed 1, tiled to 32M), read rows
    exact, both timed with CUDA events (median of 3 after a warm-up);
 4. cascade: the classify program on random (4, 65536, 1024) int8 planes,
    bit-equal to the numpy cascade on the same normalised rows;
-5. end to end: the paper-shape dataset (N read pairs x 930 genomes of
-   8 kbp, 100 bp reads; default N = 1,000,000) through
-   ``lime_tpu_torch.run_paired(device="cuda")``, byte-identical to the
-   jax-free host reference CSV, with every pair-hit kernel launched.
+5. e2e: the paper-shape dataset (N read pairs x 930 genomes of 8 kbp,
+   100 bp reads; default N = 1,000,000), its jax-free host reference
+   CSV, and the fused serving path ``run_paired(LimeConfig(fused=True),
+   device="cuda")``: byte-identical, every pair-hit kernel launched;
+6. kernels (banded): K3 on the first 4M positions of the dataset's real
+   1F stream at G_pad 1024, int32 and int8 accumulators exact against
+   the plain version (which walks V in ~1 GB position blocks), both
+   timed with CUDA events;
+7. staged: ``run_paired(LimeConfig(), device="cuda")``, the default
+   entry point (cluster_lcp -> cluster_bwt with K3 -> classify, through
+   the .clrs/.res checkpoints): byte-identical, K3 launched per
+   collection;
+8. banded: the fused banded engine, ``LimeConfig(fused=True,
+   pair_stream=False, dense_threshold=0)``: byte-identical, K3 launched.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  No part of jax is imported.
@@ -37,6 +49,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from lime_tpu_torch import LimeConfig, run_paired  # noqa: E402
+from lime_tpu_torch import pipeline as staged_pipeline  # noqa: E402
+from lime_tpu_torch.ops import banded_kernels as bk  # noqa: E402
+from lime_tpu_torch.ops import cuda_build  # noqa: E402
 from lime_tpu_torch.ops import fused_pipeline  # noqa: E402
 from lime_tpu_torch.ops import pair_kernels as pk  # noqa: E402
 from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
@@ -49,7 +64,10 @@ NUM_GENOMES, GENOME_LEN, READ_LEN = 930, 8000, 100
 #: the Pallas kernel each CUDA kernel replaces (body's first line)
 REPLACES = {"scan16": "lime_tpu/ops/pallas_kernels.py:311",
             "scan64": "lime_tpu/ops/pallas_kernels.py:311",
-            "band": "lime_tpu/ops/pallas_kernels.py:225"}
+            "band": "lime_tpu/ops/pallas_kernels.py:225",
+            "banded": "lime_tpu/ops/pallas_kernels.py:73"}
+SOURCE = {"scan16": "pair_hits", "scan64": "pair_hits", "band": "pair_hits",
+          "banded": "banded_pairs"}
 CAP_OF = {"scan16": 16, "scan64": 64, "band": 255}
 
 
@@ -88,9 +106,13 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    pk.build(verbose=True)
-    log(f"[build] pair-hit kernels built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s ({pk._LIB_PATH})")
+    for name, ptxas in cuda_build.compile_all(
+            ["pair_hits", "banded_pairs"], verbose=True).items():
+        log(f"[build] {name}: {ptxas.strip()}")
+    pk.build()
+    bk.build()
+    log(f"[build] pair-hit kernels and K3 built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s ({cuda_build.BUILD_DIR})")
 
 
 def phase_kernels(card: str):
@@ -205,54 +227,122 @@ def dataset(pairs: int):
         positions_per_collection=0)
 
 
-def phase_e2e(pairs: int, card: str, dev: torch.device):
-    from tests.synth_big import compute_truth
-
-    ds = dataset(pairs)
-    cfg = LimeConfig(fused=True)
+def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
+    """Run ``run_paired`` on ``dev`` with every launch count set to 0
+    just before; return (launches, CSV bytes) after checking the CSV
+    byte-identical to ``ref_csv``."""
+    out_csv = os.path.join(ds.root, f"torch_{label}.csv")
     shape = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len, cfg)
-    ref_csv = os.path.join(ds.root, "reference.csv")
-    t0 = time.perf_counter()
-    reference.reference_csv(ds.collections, ref_csv, *shape)
-    t_ref = time.perf_counter() - t0
-    log(f"[e2e] host reference CSV in {t_ref:.1f} s")
-
-    out_csv = os.path.join(ds.root, "torch.csv")
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    pk.reset_launches()
+    for c in counters:
+        c.reset_launches()
     t0 = time.perf_counter()
-    summary = run_paired(ds.collections, out_csv, *shape, device=dev)
+    summary = run_paired(ds.collections, out_csv, *shape,
+                         keep_results=False, device=dev)
     wall = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
+    launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    stats = fused_pipeline.LAST_RUN
+    stats = (fused_pipeline.LAST_RUN if cfg.fused
+             else staged_pipeline.LAST_RUN)
     phases = " ".join(f"{k}={v:.3f}s" for k, v in stats["phases"].items())
-    log(f"[e2e] run_paired(device='{dev}'): {wall:.3f} s wall = "
+    if cfg.fused:
+        extra = (f"; pair chunks per bucket (caps 16/64/255) "
+                 f"{stats['chunks_per_bucket']}; banded windows "
+                 f"{stats['banded_windows']}")
+    else:
+        extra = "; " + "; ".join(
+            f"{st}: " + " ".join(f"{k}={v:.3f}s" for k, v in ph.items())
+            for st, ph in stats["stages"].items())
+    log(f"[{label}] run_paired(device='{dev}'): {wall:.3f} s wall = "
         f"{ds.num_reads / wall:.0f} reads/s; phases: {phases}; peak "
-        f"device memory {peak} B; pair chunks per bucket (caps 16/64/255) "
-        f"{stats['chunks_per_bucket']}; launches {launches}; "
+        f"device memory {peak} B{extra}; launches {launches}; "
         f"C={summary.classified} H={summary.higher} A={summary.ambiguous} "
         f"U={summary.unclassified} ({card})")
     with open(ref_csv, "rb") as a, open(out_csv, "rb") as b:
         ref_bytes, out_bytes = a.read(), b.read()
     if ref_bytes != out_bytes:
-        raise AssertionError("port CSV differs from the host reference "
-                             f"({len(out_bytes)} vs {len(ref_bytes)} B)")
-    for name in launches:
-        if cuda and launches[name] == 0:
-            raise AssertionError(
-                f"kernel {name} was not launched on the main path (chunks "
-                f"per bucket {stats['chunks_per_bucket']})")
+        raise AssertionError(f"[{label}] port CSV differs from the host "
+                             f"reference ({len(out_bytes)} vs "
+                             f"{len(ref_bytes)} B)")
+    log(f"[{label}] CSV byte-identical to the host reference "
+        f"({len(out_bytes)} B)")
+    return launches, out_csv
+
+
+def phase_e2e(pairs: int, card: str, dev: torch.device):
+    from tests.synth_big import compute_truth
+
+    ds = dataset(pairs)
+    ref_csv = os.path.join(ds.root, "reference.csv")
+    t0 = time.perf_counter()
+    reference.reference_csv(ds.collections, ref_csv, ds.num_reads,
+                            ds.num_genomes, ds.lineage_path, ds.read_len,
+                            LimeConfig())
+    log(f"[e2e] host reference CSV in {time.perf_counter() - t0:.1f} s")
+    launches, out_csv = drive("e2e", ds, LimeConfig(fused=True), ref_csv,
+                              card, dev, [pk])
+    for name in pk.LAUNCHES:
+        if dev.type == "cuda" and launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 "fused serving path")
     origins = compute_truth(ds.root, ds.num_reads, ds.num_genomes,
                             GENOME_LEN)
     acc = reference.accuracy(out_csv, origins,
                              1000 + np.arange(ds.num_genomes))
-    log(f"[e2e] CSV byte-identical to the host reference "
-        f"({len(out_bytes)} B); accuracy {acc.summary()}")
-    return launches
+    log(f"[e2e] accuracy {acc.summary()}")
+    return ds, ref_csv, launches
+
+
+def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
+    """K3 against its plain version on the first ``n`` positions of the
+    1F collection's staged stream (the stream ``cluster_bwt`` scores)."""
+    from lime_tpu import native
+    from lime_tpu.formats.arrays import open_da, open_ebwt, open_lcp
+    from lime_tpu_torch.ops.fused_pass import staged_stream
+
+    cfg = LimeConfig()
+    fasta = ds.collections[0]
+    lcp, da = open_lcp(fasta), open_da(fasta)
+    starts, lens = native.plan_clusters(lcp, da, ds.num_reads, cfg.alpha,
+                                        threads=0)
+    packed_h, doc_h, window, bad = staged_stream(
+        starts, lens, da, open_ebwt(fasta), cfg, cfg.alpha, lcp)
+    packed = torch.from_numpy(packed_h[:n]).to(dev)
+    doc = torch.from_numpy(doc_h[:n]).to(dev)
+    del lcp, da, packed_h, doc_h
+    R = ds.num_reads
+    g_pad = fused_pipeline._g_pad_for(ds.num_genomes)
+    sims = {}
+    for name, dt in (("kernel32", torch.int32), ("kernel8", torch.int8),
+                     ("plain32", torch.int32)):
+        sims[name] = torch.zeros((R + 1, g_pad), dtype=dt, device=dev)
+    bk.banded_sim_into(sims["kernel32"], packed, doc, window, R)
+    bk.banded_sim_into(sims["kernel8"], packed, doc, window, R)
+    bk.banded_sim_plain(sims["plain32"], packed, doc, window, R)
+    err = int((sims["kernel32"] - sims["plain32"]).abs().max().item())
+    # int8 adds wrap mod 256: the plain int32 counts' low byte
+    err8 = int((sims["kernel8"].view(torch.uint8).to(torch.int32)
+                - (sims["plain32"] & 255)).abs().max().item())
+    pairs = int(sims["plain32"].sum().item())
+    if err or err8:
+        raise AssertionError(f"banded: kernel != plain (max abs err int32 "
+                             f"{err}, int8 {err8})")
+    acc = sims["kernel32"]
+    ms = time_ms(lambda: bk.banded_sim_into(acc, packed, doc, window, R))
+    plain_ms = time_ms(
+        lambda: bk.banded_sim_plain(acc, packed, doc, window, R), reps=1)
+    log(f"[kernels] banded: {n} positions of the 1F stream, G_pad {g_pad}, "
+        f"window {window}: int32 and int8 exact ({pairs} pair counts); "
+        f"kernel {ms:.3f} ms = {n / ms / 1e3:.1f} Mpos/s, plain "
+        f"{plain_ms:.3f} ms = {n / plain_ms / 1e3:.1f} Mpos/s ({card})")
+    del sims, acc, packed, doc
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4)}
 
 
 def main(argv=None) -> int:
@@ -261,16 +351,38 @@ def main(argv=None) -> int:
                     help="read pairs of the end-to-end dataset")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
-    name, smi = phase_device()
-    phase_build()
-    records = phase_kernels(smi)
+    times = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        times[name] = time.perf_counter() - t0
+        return out
+
+    name, smi = timed("device", phase_device)
+    timed("build", phase_build)
+    records = timed("kernels", phase_kernels, smi)
     dev = torch.device("cuda")
-    phase_cascade(dev)
-    launches = phase_e2e(args.pairs, smi, dev)
+    timed("cascade", phase_cascade, dev)
+    ds, ref_csv, launches = timed("e2e", phase_e2e, args.pairs, smi, dev)
+    records["banded"] = timed("kernels_banded", phase_banded_kernel, ds,
+                              smi, dev)
+    staged, _ = timed("staged", drive, "staged", ds, LimeConfig(), ref_csv,
+                      smi, dev, [bk])
+    banded, _ = timed("banded", drive, "banded", ds,
+                      LimeConfig(fused=True, pair_stream=False,
+                                 dense_threshold=0),
+                      ref_csv, smi, dev, [bk])
+    if staged["banded"] < 4 or banded["banded"] == 0:
+        raise AssertionError(f"K3 launches: staged {staged['banded']} "
+                             f"(needs >= 4), banded {banded['banded']}")
+    launches["banded"] = staged["banded"]
     kernels = [{"name": k, "route": "cuda",
-                "source": "lime_tpu_torch/csrc/pair_hits.cu",
+                "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                **records[k]} for k in CAP_OF]
+                **records[k]} for k in REPLACES]
+    log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
+                                          for k, v in times.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
-"""lime-tpu on PyTorch and CUDA: the fused serving path on one NVIDIA GPU.
+"""lime-tpu on PyTorch and CUDA, on one NVIDIA GPU.
 
-A port of ``lime_tpu``'s fused serving run (``run_paired(...,
-LimeConfig(fused=True))`` with every cluster scored on the device) to
-torch, with the TPU's Pallas pair kernels rewritten as CUDA C++ for
-Hopper (``csrc/pair_hits.cu``).  The framework-free host layer — the C++
+A port of ``lime_tpu``'s staged executor (the default ``LimeConfig()``:
+cluster_lcp -> cluster_bwt -> classify, with their checkpoint files), its
+fused serving run (``LimeConfig(fused=True)``, every cluster scored on
+the device) and its banded engine to torch, with the TPU's Pallas
+kernels rewritten as CUDA C++ for Hopper (``csrc/pair_hits.cu``,
+``csrc/banded_pairs.cu``).  The framework-free host layer — the C++
 planners and scorer, the index formats, the config, the numpy cascade —
 is ``lime_tpu``'s own and is imported from there; nothing here imports
 jax.
@@ -18,6 +20,12 @@ Quick start::
 
 from lime_tpu.config import DEFAULT_CONFIG, LimeConfig  # noqa: F401
 
-from .pipeline import run_paired, run_single  # noqa: F401
+from .pipeline import (  # noqa: F401
+    classify,
+    cluster_bwt,
+    cluster_lcp,
+    run_paired,
+    run_single,
+)
 
 __version__ = "0.1.0"

@@ -13,9 +13,22 @@ the reference and stays unchanged, so the port keeps these copies and
 - ``_gcol_padded`` / ``merge_coo_segments`` / ``_pack24``
                                              lime_tpu/ops/pair_score.py
 - ``pack_chunks`` and its constants          lime_tpu/ops/dense_score.py
+- ``_BLOCK`` / ``_bad_cluster_mask``          lime_tpu/ops/fused_pass.py
+- ``_M_BIT`` / ``_dense_threshold_for`` / ``_dense_min_for``
+                                             lime_tpu/ops/fused_pipeline.py
+- ``pack_stream`` and its bit positions      lime_tpu/ops/pallas_kernels.py
+
+``tests/test_torch_staged.py`` pins the last three rows.  Also here:
+:func:`ensure_native`, which loads ``lime_tpu.native`` safely when many
+processes start at once.
 """
 
 from __future__ import annotations
+
+import fcntl
+import os
+import subprocess
+from typing import Tuple
 
 import numpy as np
 
@@ -27,6 +40,75 @@ from lime_tpu.ops.scoring import _expand_positions, score_clusters
 # bytes whose symbol rank is IUPAC-degenerate (4..14)
 _DEGENERATE_BYTE = np.zeros(256, dtype=bool)
 _DEGENERATE_BYTE[(SYMBOL_RANK_LUT >= 4) & (SYMBOL_RANK_LUT <= 14)] = True
+
+_BLOCK = 1 << 20  # stream pad multiple of the staged and banded paths
+_M_BIT = 6        # run-mask bit of the banded stream byte
+PACK_M_BIT = 6
+PACK_EMIT_BIT = 5
+
+
+# ---------------------------------------------------------------------------
+# The native library, loaded once per process even under concurrent starts
+# ---------------------------------------------------------------------------
+
+def _native_stamp() -> str:
+    return native._LIB + ".ok"
+
+
+def _native_fingerprint() -> str:
+    st = os.stat(native._LIB)
+    return f"{st.st_ino} {st.st_size} {st.st_mtime_ns}"
+
+
+def _native_fresh() -> bool:
+    """The library is complete (stamped by a lock holder) and current."""
+    try:
+        with open(_native_stamp()) as fh:
+            stamped = fh.read() == _native_fingerprint()
+    except OSError:
+        return False
+    return stamped and (os.path.getmtime(native._LIB)
+                        >= os.path.getmtime(native._SRC))
+
+
+def ensure_native():
+    """Load ``lime_tpu.native``, building it if needed; raise if it cannot.
+
+    ``lime_tpu.native._load`` compiles straight onto the library's final
+    path without a lock and, if ``ctypes.CDLL`` then fails (say on a
+    file another process is still writing), marks the library failed for
+    the rest of the process.  Under an ``fcntl`` lock on
+    ``build/native/``, this loads a library that a holder of the same
+    lock finished (its fingerprint is stamped beside it); otherwise it
+    compiles with ``_load``'s own command into a pid-suffixed temp file,
+    renames it onto the library and stamps it.  Then it clears the
+    failure and loads again.
+    """
+    if native._lib is not None:
+        return native._lib
+    os.makedirs(native._LIB_DIR, exist_ok=True)
+    with open(os.path.join(native._LIB_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(3):
+            if native._lib is not None:
+                break
+            if not _native_fresh():
+                tmp = f"{native._LIB}.{os.getpid()}.tmp"
+                subprocess.run(
+                    ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
+                     "-fPIC", "-std=c++17", native._SRC, "-o", tmp],
+                    check=True, capture_output=True)
+                os.replace(tmp, native._LIB)
+                with open(_native_stamp(), "w") as fh:
+                    fh.write(_native_fingerprint())
+            native._failed = False
+            native._load()
+            if native._lib is None and os.path.exists(_native_stamp()):
+                os.remove(_native_stamp())  # rebuild on the next round
+    if native._lib is None:
+        raise RuntimeError(f"native library {native._LIB} cannot be "
+                           "loaded: the port needs g++ to build it")
+    return native._lib
 
 
 # ---------------------------------------------------------------------------
@@ -276,3 +358,52 @@ def _rescue(bad_start, bad_len, da, ebwt, num_reads: int, num_genomes: int,
         num_reads, num_genomes, SYMBOL_RANK_LUT, _DEGENERATE_BYTE,
         IUPAC_WATERFALL_PAIRS, wide=config.wide_sim, threads=0)
     return ("dense", mat)
+
+
+# ---------------------------------------------------------------------------
+# The banded engine: stream bytes, routing thresholds, host-routed clusters
+# ---------------------------------------------------------------------------
+
+def pack_stream(m, emit, sym):
+    """Pack (m, emit, sym-rank) into the kernel's one-byte position code."""
+    return (np.asarray(sym).astype(np.uint8)
+            | (np.asarray(m).astype(np.uint8) << PACK_M_BIT)
+            | (np.asarray(emit).astype(np.uint8) << PACK_EMIT_BIT))
+
+
+def _bad_cluster_mask(p_start: np.ndarray, lens: np.ndarray,
+                      ebwt: np.ndarray | None, window: int,
+                      use_ebwt: bool, n: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """(per-position emit gate, indices of host-rescored clusters)."""
+    bad = lens > window
+    if use_ebwt and ebwt is not None:
+        deg_pos = np.flatnonzero(_DEGENERATE_BYTE[np.asarray(ebwt)])
+        if len(deg_pos):
+            cid = np.searchsorted(p_start, deg_pos, side="right") - 1
+            inside = (cid >= 0) & (deg_pos < p_start[cid] + lens[cid])
+            bad[np.unique(cid[inside])] = True
+    bad_idx = np.flatnonzero(bad)
+    ok = np.ones(n, dtype=bool)
+    for c in bad_idx:  # rare
+        ok[p_start[c]:p_start[c] + lens[c]] = False
+    return ok, bad_idx
+
+
+def _dense_threshold_for(num_genomes: int, config: LimeConfig) -> int:
+    """Genome-position threshold for banded-kernel routing (see
+    LimeConfig.dense_threshold): past G_pad 256 every cluster below it
+    goes to the host scorer."""
+    if config.dense_threshold is not None:
+        return config.dense_threshold
+    return 0 if _g_pad_for(num_genomes) <= 256 else (1 << 62)
+
+
+def _dense_min_for(num_genomes: int, config: LimeConfig) -> int:
+    """Genome-position threshold for the dense histogram-matmul routing
+    of the banded engine (0 disables it)."""
+    if not native.available():
+        return 0
+    if config.mxu_dense_min is not None:
+        return config.mxu_dense_min
+    return 0 if _g_pad_for(num_genomes) <= 256 else 16

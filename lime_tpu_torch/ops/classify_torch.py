@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from lime_tpu.constants import NUM_RANKS
-from lime_tpu.ops.classify_ops import TYPE_A, TYPE_C, TYPE_H
+from lime_tpu.ops.classify_ops import TYPE_A, TYPE_C, TYPE_H, ClassifyResult
 
 _SENTINEL = 0xFFFFFFFF
 
@@ -158,6 +158,34 @@ def blockwise_cascade(sims, tax, rank_matrix, valid_t, error, norm, beta,
         taxid[lo:lo + block] = x_
         sim[lo:lo + block] = s
     return types, taxid, sim
+
+
+def classify_reads_torch(dense: np.ndarray, max_sim: np.ndarray,
+                         tax: np.ndarray, rank_matrix: np.ndarray | None,
+                         tax_rank: int, error: np.float32,
+                         assign_higher: bool, device) -> ClassifyResult:
+    """The cascade over one read block on ``device``: the counterpart of
+    ``lime_tpu.ops.classify_tpu.classify_reads_tpu`` (and a drop-in for
+    ``classify_ops.classify_reads``).
+
+    ``dense`` (B, F, T) float32 normalised scores, ``max_sim`` (B, F),
+    ``tax`` (T,) taxids, ``rank_matrix`` (NUM_RANKS, T) or None.
+    """
+    B, F, T = dense.shape
+    rm = (np.asarray(rank_matrix, np.int64) if rank_matrix is not None
+          else np.zeros((NUM_RANKS, T), np.int64))
+
+    def put(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    types, taxid, sim = cascade_core(
+        put(dense), put(max_sim), put(tax, np.int64), put(rm),
+        torch.ones(T, dtype=torch.bool, device=device),
+        torch.tensor(np.float32(error), device=device), F, tax_rank,
+        assign_higher)
+    return ClassifyResult(types.cpu().numpy(),
+                          taxid.cpu().numpy().astype(np.uint32),
+                          sim.cpu().numpy())
 
 
 def _pack_triplet(types, taxid, sim) -> torch.Tensor:

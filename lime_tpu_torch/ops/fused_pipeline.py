@@ -1,13 +1,17 @@
 """Fused serving pipeline on one device: collections -> per-read assignments.
 
 Torch port of the device branch of
-``lime_tpu/ops/fused_pipeline._run_fused_inner``: pair streams, every
-cluster scored on the device (no host split), one block of rows.  Per
-collection the native planner (C++, GIL released) scans the index once
-and routes every alpha-cluster:
+``lime_tpu/ops/fused_pipeline._run_fused_inner``: every cluster scored on
+the device (no host split), one block of rows.  Per collection the native
+planner (C++, GIL released) scans the index once and routes every
+alpha-cluster:
 
 - sparse clusters -> packed pair streams (ops/pair_score.py), scored by
-  the hand-written pair-hit kernels;
+  the hand-written pair-hit kernels; or, with ``pair_stream=False`` or a
+  run too wide for pair streams (over 2^28 reads or 65536 genomes), the
+  banded engine: ``native.plan_native``'s compacted position stream
+  scored by K3 (ops/banded_kernels.py), with density routing
+  (``dense_threshold``) sending genome-sparse clusters to the host;
 - genome-dense clusters -> the batched histogram matmul
   (ops/dense_score.py);
 - IUPAC-degenerate, over-long and matmul-inexpressible clusters -> the
@@ -42,10 +46,13 @@ from lime_tpu.formats.lineage import Lineage
 from lime_tpu.ops.classify_ops import ClassifyResult
 from lime_tpu.utils.timing import PhaseTimer
 
-from ..host import (B_BLK, C_BLK, K, PR, _DEGENERATE_BYTE,
-                    _classify_block_for, _g_pad_for, _r_pad_for, _rescue,
-                    merge_coo_segments, pack_chunks)
+from ..host import (_BLOCK, _M_BIT, B_BLK, C_BLK, K, PACK_EMIT_BIT, PR,
+                    _DEGENERATE_BYTE, _classify_block_for,
+                    _dense_min_for, _dense_threshold_for, _g_pad_for,
+                    _r_pad_for, _rescue, ensure_native, merge_coo_segments,
+                    pack_chunks)
 from ..timing import device_memory_stats
+from .banded_kernels import banded_sim_into
 from .classify_torch import (_classify_program_planes, _unpack_triplet,
                              alloc_planes)
 from .dense_score import _dense_chunk
@@ -80,45 +87,55 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _refuse_unported(config: LimeConfig, num_reads: int,
-                     num_genomes: int) -> None:
+def _refuse_unported(config: LimeConfig) -> None:
     env = os.environ.get("LIME_HOST_FRAC")
     if (config.host_frac not in (None, 0.0)
             or (env is not None and float(env) != 0.0)):
         raise NotImplementedError(
             "hybrid and all-host splits (host_frac / LIME_HOST_FRAC) are "
             "not ported yet: ROADMAP queue 1, item 8")
-    if config.pair_stream is False:
-        raise NotImplementedError(
-            "the banded engine (pair_stream=False) is not ported yet: "
-            "ROADMAP queue 1, item 10")
-    if num_reads > (1 << 28) or num_genomes > (1 << 16):
-        raise NotImplementedError(
-            "pair streams carry <= 2^28 reads and <= 65536 genomes; wider "
-            "runs need the banded engine: ROADMAP queue 1, item 10")
-    if not native.available():
-        raise RuntimeError("the native planner (lime_tpu.native) is "
-                           "unavailable: the port needs g++ to build it")
 
 
-def _check_memory(stack_bytes: int, device: torch.device) -> None:
+def _check_memory(stack_bytes: int, device: torch.device,
+                  pair: bool) -> None:
     """Refuse a stack the device cannot hold in one block.
 
     The budget is the device's free memory less MEMORY_HEADROOM (CUDA),
-    capped by ``LIME_HBM_BUDGET`` when that is set (any device).
+    capped by ``LIME_HBM_BUDGET`` when that is set (any device) on the
+    pair-stream path, whose over-budget runs ``lime_tpu`` sends to the
+    row-blocked mode; its banded path has no such mode or budget.
     """
     budget = None
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         budget = free - MEMORY_HEADROOM
     env = os.environ.get("LIME_HBM_BUDGET")
-    if env is not None:
+    if env is not None and pair:
         budget = int(env) if budget is None else min(budget, int(env))
     if budget is not None and stack_bytes > budget:
         raise NotImplementedError(
             f"the score planes need {stack_bytes} bytes, over the "
             f"{budget}-byte budget: the row-blocked mode is not ported "
             "yet (ROADMAP queue 1, item 9)")
+
+
+def _doc_i32(doc: np.ndarray) -> np.ndarray:
+    """The planner's u16 or u32 document ids as int32 (u32 by its bits;
+    ids stay below 2^31)."""
+    return doc.view(np.int32) if doc.dtype == np.uint32 else \
+        doc.astype(np.int32)
+
+
+def _score_program(sim: torch.Tensor, packed: torch.Tensor,
+                   doc: torch.Tensor, window: int,
+                   num_reads: int) -> None:
+    """Banded scores of one compacted planner stream into ``sim`` (the
+    counterpart of ``lime_tpu``'s ``_score_program``).  Like it, this
+    reads only the planner's run-mask bit and symbol and lets every
+    position emit (``emit_ok=None``); genome positions never do."""
+    keep = (1 << _M_BIT) | 15
+    banded_sim_into(sim, (packed & keep) | (1 << PACK_EMIT_BIT), doc,
+                    window, num_reads)
 
 
 def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
@@ -130,18 +147,28 @@ def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
     if F not in (2, 4):
         raise ValueError("fused pipeline takes 2 or 4 collections")
     device = resolve_device(device)
-    _refuse_unported(config, num_reads, num_genomes)
+    _refuse_unported(config)
+    ensure_native()
 
     r_pad = _r_pad_for(num_reads)
     g_pad = _g_pad_for(num_genomes)
     block = _classify_block_for(num_reads)
     wide = bool(config.wide_sim)
-    _check_memory(F * r_pad * g_pad * (4 if wide else 1), device)
-    dense_min = 16 if config.mxu_dense_min is None else config.mxu_dense_min
+    pair = (config.pair_stream is not False and num_reads <= (1 << 28)
+            and num_genomes <= (1 << 16))
+    _check_memory(F * r_pad * g_pad * (4 if wide else 1), device, pair)
+    if pair:
+        dense_min = (16 if config.mxu_dense_min is None
+                     else config.mxu_dense_min)
+    else:
+        dense_min = _dense_min_for(num_genomes, config)
+        g_dense = _dense_threshold_for(num_genomes, config)
+        use_u16 = (num_reads + num_genomes) < 0xFFFF
     f_feat = (4 if config.use_ebwt else 1) * K
     keep = []  # pinned staging buffers + their copies' events
     corr = []  # (file, rows, cols, vals) per rescued collection
     chunk_counts = [0, 0, 0]
+    banded_windows = []  # per collection, 0 = nothing banded
 
     def load(fasta):
         # memmaps: the planner's sequential scan faults pages in as it
@@ -208,20 +235,42 @@ def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
             lcp, da, ebwt = arrays
             timer.add_bytes("score",
                             len(lcp) * (9 if config.use_ebwt else 8))
-            with timer.phase("plan"):
-                (pk_arrays, chunks, windows, row_bits, dense_start,
-                 dense_len, bad_start, bad_len) = native.plan_pairs_packed(
-                    lcp, da, ebwt, num_reads, config.alpha,
-                    SYMBOL_RANK_LUT, _DEGENERATE_BYTE.astype(np.uint8),
-                    dense_min=dense_min, num_refs=num_genomes, host_num=0)
-            for c in chunks:
-                chunk_counts[c[0]] += 1
-            if chunks:
-                with timer.phase("dispatch",
-                                 nbytes=sum(a.nbytes for a in pk_arrays)):
-                    pair_score_packed_into(planes[fi], pk_arrays, chunks,
-                                           windows, row_bits, num_reads,
-                                           keep)
+            if pair:
+                with timer.phase("plan"):
+                    (pk_arrays, chunks, windows, row_bits, dense_start,
+                     dense_len, bad_start, bad_len) = \
+                        native.plan_pairs_packed(
+                            lcp, da, ebwt, num_reads, config.alpha,
+                            SYMBOL_RANK_LUT,
+                            _DEGENERATE_BYTE.astype(np.uint8),
+                            dense_min=dense_min, num_refs=num_genomes,
+                            host_num=0)
+                for c in chunks:
+                    chunk_counts[c[0]] += 1
+                if chunks:
+                    with timer.phase("dispatch", nbytes=sum(
+                            a.nbytes for a in pk_arrays)):
+                        pair_score_packed_into(planes[fi], pk_arrays,
+                                               chunks, windows, row_bits,
+                                               num_reads, keep)
+            else:
+                with timer.phase("plan"):
+                    (packed, doc, nc, window, bad_start, bad_len,
+                     dense_start, dense_len) = native.plan_native(
+                        lcp, da, ebwt, num_reads, config.alpha,
+                        SYMBOL_RANK_LUT, _DEGENERATE_BYTE, use_u16,
+                        pad_block=_BLOCK, pad_doc=num_reads + num_genomes,
+                        g_dense=g_dense, dense_min=dense_min)
+                banded_windows.append(window if nc else 0)
+                if nc:
+                    with timer.phase("dispatch",
+                                     nbytes=packed.nbytes + doc.nbytes):
+                        _score_program(planes[fi],
+                                       to_device(packed, device, keep),
+                                       to_device(_doc_i32(doc), device,
+                                                 keep),
+                                       window, num_reads)
+                packed = doc = None
             if len(dense_start):
                 with timer.phase("dense", nbytes=int(dense_len.sum()) * 5):
                     d_chunks, left_s, left_l = pack_chunks(
@@ -297,9 +346,12 @@ def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
     mem = device_memory_stats(device)
     del buf, planes, packed
     LAST_RUN.clear()
-    LAST_RUN.update({"chunks_per_bucket": list(chunk_counts),
+    LAST_RUN.update({"engine": "pair" if pair else "banded",
+                     "chunks_per_bucket": list(chunk_counts),
+                     "banded_windows": banded_windows,
                      "memory": mem, "phases": dict(timer.phases)})
-    logger.info("pair chunks per bucket (caps 16/64/255): %s; device "
-                "memory: %s", chunk_counts, mem)
+    logger.info("%s engine; pair chunks per bucket (caps 16/64/255): %s; "
+                "banded windows: %s; device memory: %s",
+                LAST_RUN["engine"], chunk_counts, banded_windows, mem)
     timer.report()
     return ClassifyResult(t_h[:num_reads], x_h[:num_reads], s_h[:num_reads])

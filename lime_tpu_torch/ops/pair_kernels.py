@@ -27,13 +27,12 @@ missing nvcc, a failed build or a refused launch raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
+
+from . import cuda_build
 
 #: rows per Pallas grid step; a chunk's length must be a multiple of it
 PAIR_TILE = 16384
@@ -50,29 +49,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "pair_hits.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "lime_tpu_torch")
-_LIB_PATH = os.path.join(_BUILD_DIR, "libpair_hits.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_LIB_PATH = cuda_build.lib_path("pair_hits")
 
 _lock = threading.Lock()
 _lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None:
-        home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = os.path.join(home, "bin", "nvcc")
-        if os.path.exists(cand):
-            path = cand
-    if path is None:
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                           "/usr/local/cuda/bin): cannot build "
-                           f"{_SRC}")
-    return path
 
 
 def build(verbose: bool = False) -> ctypes.CDLL:
@@ -82,21 +62,9 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_SRC) > os.path.getmtime(_LIB_PATH)):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS,
-                   *(("-Xptxas", "-v") if verbose else ()),
-                   "-o", tmp, _SRC]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stderr}")
-            if verbose and proc.stderr:
-                print(proc.stderr, flush=True)
-            os.replace(tmp, _LIB_PATH)
+        for log in cuda_build.compile_all(["pair_hits"], verbose).values():
+            if verbose and log:
+                print(log, flush=True)
         lib = ctypes.CDLL(_LIB_PATH)
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         for name in ("lime_pair_hits_scan16", "lime_pair_hits_scan64"):

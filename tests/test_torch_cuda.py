@@ -19,6 +19,8 @@ from lime_tpu.config import LimeConfig
 from lime_tpu.constants import NUM_RANKS, SYMBOL_RANK_LUT
 from lime_tpu.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch import host, reference, run_paired, run_single
+from lime_tpu_torch.host import ensure_native
+from lime_tpu_torch.ops import banded_kernels as bk
 from lime_tpu_torch.ops import classify_torch as ct
 from lime_tpu_torch.ops import pair_kernels as pk
 from lime_tpu_torch.ops import pair_score as tps
@@ -28,6 +30,9 @@ from .synth import make_dataset
 from .synth_big import make_big_dataset
 
 pytestmark = pytest.mark.cuda
+# build and load the native library before any test, whatever the
+# other test processes do (lime_tpu_torch.host.ensure_native)
+ensure_native()
 
 FUSED = LimeConfig(fused=True)
 CPU = torch.device("cpu")
@@ -189,3 +194,90 @@ def test_run_cuda_matches_reference(cuda, deep, tmp_path, single, kw):
     reference.reference_csv(cols, c, *args)
     assert _read(a) == _read(c)
     assert all(launches.values()), launches
+
+
+# ---------------------------------------------------------------------------
+# K3 (banded) and the staged / fused-banded paths
+# ---------------------------------------------------------------------------
+
+def _banded_stream(rng, n, num_reads, num_refs, max_run, emit_frac=0.8):
+    """Random packed stream: runs (clusters) shorter than ``max_run``
+    positions, random documents, symbols and emit gates."""
+    m = rng.random(n) < 0.9
+    run = 0
+    for i in range(n):
+        run = run + 1 if m[i] else 0
+        if run >= max_run:
+            m[i] = False
+            run = 0
+    m[0] = False
+    doc = rng.integers(0, num_reads + num_refs, size=n).astype(np.int32)
+    sym = rng.integers(0, 4, size=n)
+    emit = rng.random(n) < emit_frac
+    return host.pack_stream(m, emit, sym), doc
+
+
+@pytest.mark.parametrize("acc,num_reads,num_refs", [
+    (torch.int32, 3000, 300),
+    (torch.int8, 3000, 300),
+    (torch.int8, 3, 5),      # few documents: counts past 255 wrap
+    (torch.int32, 3, 5),
+])
+def test_banded_kernel_matches_plain(cuda, acc, num_reads, num_refs):
+    """K3 equals its plain version at window 255 on a stream whose
+    clusters cross the kernel's 1024-position tiles and the plain
+    version's blocks; one launch is counted."""
+    rng = np.random.default_rng(num_reads + num_refs)
+    n = 12 * 1024 + 77
+    packed_h, doc_h = _banded_stream(rng, n, num_reads, num_refs, 255)
+    g_pad = host._g_pad_for(num_refs)
+    sims = []
+    for dev in (CPU, cuda):
+        sim = torch.zeros((num_reads + 1, g_pad), dtype=acc, device=dev)
+        before = bk.LAUNCHES["banded"]
+        if dev.type == "cuda":
+            bk.banded_sim_into(sim, torch.from_numpy(packed_h).to(dev),
+                               torch.from_numpy(doc_h).to(dev), 255,
+                               num_reads)
+            assert bk.LAUNCHES["banded"] == before + 1
+        else:
+            bk.banded_sim_plain(sim, torch.from_numpy(packed_h),
+                                torch.from_numpy(doc_h), 255, num_reads,
+                                block=2000)
+        sims.append(sim.cpu().numpy())
+    assert np.any(sims[0])
+    assert np.array_equal(sims[1], sims[0])
+    if num_reads == 3:
+        wide = sims[0] if acc == torch.int32 else None
+        assert wide is None or wide.max() > 255
+
+
+def test_banded_kernel_refuses_missing_drop_row(cuda):
+    packed_h, doc_h = _banded_stream(np.random.default_rng(0), 4096, 100,
+                                     20, 64)
+    sim = torch.zeros((100, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="drop row"):
+        bk.banded_sim_into(sim, torch.from_numpy(packed_h).to(cuda),
+                           torch.from_numpy(doc_h).to(cuda), 64, 100)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(wide_sim=True, binary_results=False),
+    dict(fused=True, pair_stream=False, dense_threshold=0),
+])
+def test_banded_paths_cuda_match_host(cuda, deep, tmp_path, kw):
+    """The staged executor and the fused banded engine on the card: CSV
+    byte-identical to lime_tpu's jax-free host stages (the text .res
+    format rounds scores, so the staged text run is held against the
+    staged host run), K3 launched."""
+    cfg = LimeConfig(**kw)
+    args = (deep.num_reads, deep.num_genomes, deep.lineage_path,
+            deep.read_len)
+    a, c = str(tmp_path / "torch.csv"), str(tmp_path / "host.csv")
+    bk.reset_launches()
+    run_paired(deep.collections, a, *args, cfg, device=cuda)
+    launches = bk.LAUNCHES["banded"]
+    run_paired(deep.collections, c, *args, cfg.replace(executor="host"))
+    assert _read(a) == _read(c)
+    assert launches >= (1 if cfg.fused else 4)

@@ -4,7 +4,9 @@
 lime_tpu's fused (JAX) serving run and its staged host executor; the
 jax-free host reference (lime_tpu_torch/reference.py) must too.  Also
 pinned here: the port imports without jax, each copied host helper equals
-its original, and unported modes raise instead of running something else.
+its original, and unported modes raise instead of running something else
+(the banded engine, ``pair_stream=False``, is held in
+test_torch_staged.py).
 """
 
 import os
@@ -32,6 +34,9 @@ from lime_tpu_torch.reference import reference_csv
 from .synth import make_dataset
 from .synth_big import make_big_dataset
 
+# build and load the native library before any test, whatever the
+# other test processes do (lime_tpu_torch.host.ensure_native)
+host.ensure_native()
 # Many small CPU ops: intra-op threads would only contend with the other
 # test workers (oversubscribed barriers cost orders of magnitude).
 torch.set_num_threads(1)
@@ -145,7 +150,6 @@ def test_import_without_jax():
     (dict(host_frac=0.5), {}),
     (dict(host_frac=1.0), {}),
     ({}, {"LIME_HOST_FRAC": "0.3"}),
-    (dict(pair_stream=False), {}),
     ({}, {"LIME_HBM_BUDGET": "1"}),
 ])
 def test_unported_modes_raise(dataset, tmp_path, monkeypatch, kw, env):

@@ -15,9 +15,13 @@ from lime_tpu.ops import pair_score as jps
 from lime_tpu.ops.pallas_kernels import pair_hits_pallas
 from lime_tpu.ops.pallas_kernels import (
     planner_shaped_stream as jax_planner_shaped_stream)
+from lime_tpu_torch.host import ensure_native
 from lime_tpu_torch.ops import pair_kernels as pk
 from lime_tpu_torch.ops import pair_score as tps
 
+# build and load the native library before any test, whatever the
+# other test processes do (lime_tpu_torch.host.ensure_native)
+ensure_native()
 # Many small CPU ops: intra-op threads would only contend with the other
 # test workers (oversubscribed barriers cost orders of magnitude).
 torch.set_num_threads(1)

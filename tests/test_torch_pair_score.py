@@ -18,6 +18,9 @@ from lime_tpu_torch.ops import pair_score as tps
 
 from .synth import make_dataset
 
+# build and load the native library before any test, whatever the
+# other test processes do (lime_tpu_torch.host.ensure_native)
+host.ensure_native()
 # Many small CPU ops: intra-op threads would only contend with the other
 # test workers (oversubscribed barriers cost orders of magnitude).
 torch.set_num_threads(1)
