@@ -27,9 +27,12 @@ code is non-zero:
    1F stream at G_pad 1024, int32 and int8 accumulators exact against
    the plain version (which walks V in ~1 GB position blocks), both
    timed as above; then K3 alone on the whole staged stream of each
-   collection (the four launches of ``[staged]``), with its pair count,
-   the (read, genome) cells it touches and its bound (5 B per position,
-   8 B per touched cell, at 3.35 TB/s);
+   collection (the four launches of ``[staged]``), with the stream's
+   runs by length, its pair count, the (read, genome) cells it touches
+   and its bound (5 B per position, 8 B per touched int32 cell, at
+   3.35 TB/s); then on each collection's planner stream, the launches of
+   ``[banded]`` (2 B per touched int8 cell); K3's registers and shared
+   memory come from ``-Xptxas -v`` in ``[build]``;
 7. staged: ``run_paired(LimeConfig(), device="cuda")``, the default
    entry point (cluster_lcp -> cluster_bwt with K3 -> classify, through
    the .clrs/.res checkpoints): byte-identical, K3 launched per
@@ -65,7 +68,8 @@ from lime_tpu_torch import pipeline as staged_pipeline  # noqa: E402
 from lime_tpu_torch.constants import SYMBOL_RANK_LUT  # noqa: E402
 from lime_tpu_torch.formats.arrays import (  # noqa: E402
     open_da, open_ebwt, open_lcp)
-from lime_tpu_torch.host import _DEGENERATE_BYTE  # noqa: E402
+from lime_tpu_torch.host import (  # noqa: E402
+    _DEGENERATE_BYTE, PACK_EMIT_BIT, PACK_M_BIT)
 from lime_tpu_torch.ops import banded_kernels as bk  # noqa: E402
 from lime_tpu_torch.ops import cuda_build  # noqa: E402
 from lime_tpu_torch.ops import fused_pipeline  # noqa: E402
@@ -75,11 +79,13 @@ from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
     _classify_program_planes, _unpack_triplet, alloc_planes)
 from lime_tpu_torch.ops.fused_pass import staged_stream  # noqa: E402
 from lime_tpu_torch.synth_big import (  # noqa: E402
-    BigDataset, compute_truth, make_big_dataset)
+    PAPER_GENOME_LEN, PAPER_GENOMES, PAPER_READ_LEN, compute_truth,
+    paper_dataset)
 from lime_tpu_torch.utils.timing import event_ms, graph_ms  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-NUM_GENOMES, GENOME_LEN, READ_LEN = 930, 8000, 100
+NUM_GENOMES, GENOME_LEN, READ_LEN = (PAPER_GENOMES, PAPER_GENOME_LEN,
+                                     PAPER_READ_LEN)
 
 #: the Pallas kernel each CUDA kernel replaces (body's first line)
 REPLACES = {"scan16": "lime_tpu/ops/pallas_kernels.py:311",
@@ -121,11 +127,33 @@ def phase_device():
     return name, smi
 
 
+def ptxas_usage(ptxas: str) -> dict:
+    """``-Xptxas -v`` output -> {mangled kernel name: its registers,
+    shared memory and spills}."""
+    usage, name = {}, None
+    for line in ptxas.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "bytes spill" in line:
+            usage[name] = line
+        elif name and line.startswith("ptxas info") and "Used" in line:
+            usage[name] = f"{line.split(':', 1)[1].strip()}; " + usage.get(
+                name, "")
+            name = None
+    return usage
+
+
 def phase_build():
     t0 = time.perf_counter()
     for name, ptxas in cuda_build.compile_all(
             ["pair_hits", "banded_pairs"], verbose=True).items():
         log(f"[build] {name}: {ptxas.strip()}")
+        for kernel, use in ptxas_usage(ptxas).items():
+            if "banded_sim_kernel" in kernel:
+                acc = "int8_t" if "banded_sim_kernelIa" in kernel \
+                    else "int32_t"
+                log(f"[build] K3 banded_sim_kernel<{acc}>: {use}")
     pk.build()
     bk.build()
     log(f"[build] pair-hit kernels and K3 built and loaded in "
@@ -279,26 +307,12 @@ def phase_cascade(dev: torch.device, R: int = 65536):
 
 
 def dataset(pairs: int):
-    root = os.path.join(ROOT, "build", "paper_data" if pairs == 1_000_000
-                        else f"paper_data_{pairs}")
-    stamp = os.path.join(root, f"v1_{pairs}_{NUM_GENOMES}_{GENOME_LEN}.ok")
     t0 = time.perf_counter()
-    if not os.path.exists(stamp):
-        make_big_dataset(root, num_pairs=pairs, num_genomes=NUM_GENOMES,
-                         genome_len=GENOME_LEN, seed=17)
-        with open(stamp, "w") as f:
-            f.write("ok")
-        how = "built"
-    else:
-        how = "reused"
-    log(f"[e2e] dataset {how}: {pairs} pairs x {NUM_GENOMES} genomes in "
-        f"{time.perf_counter() - t0:.1f} s ({root})")
-    return BigDataset(
-        root=root, collections=[os.path.join(root, f"col_{t}.fasta")
-                                for t in ("1F", "1RC", "2F", "2RC")],
-        lineage_path=os.path.join(root, "LineageFile.csv"),
-        num_reads=pairs, num_genomes=NUM_GENOMES, read_len=READ_LEN,
-        positions_per_collection=0)
+    ds, built = paper_dataset(os.path.join(ROOT, "build"), pairs)
+    log(f"[e2e] dataset {'built' if built else 'reused'}: {pairs} pairs x "
+        f"{NUM_GENOMES} genomes in {time.perf_counter() - t0:.1f} s "
+        f"({ds.root})")
+    return ds
 
 
 def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
@@ -378,25 +392,86 @@ def _k3_bound_ms(n: int, acc: torch.Tensor) -> tuple:
 
 def _staged_codes(fasta: str, ds, cfg, dev):
     """One collection's staged stream, the stream ``cluster_bwt`` hands
-    K3: (packed codes, document ids) on ``dev``, and its window."""
+    K3: (packed codes, document ids) on ``dev``, its window, and the
+    host copies."""
     lcp, da = open_lcp(fasta), open_da(fasta)
     starts, lens = native.plan_clusters(lcp, da, ds.num_reads, cfg.alpha,
                                         threads=0)
     packed_h, doc_h, window, _ = staged_stream(
         starts, lens, da, open_ebwt(fasta), cfg, cfg.alpha, lcp)
     return (torch.from_numpy(packed_h).to(dev),
-            torch.from_numpy(doc_h).to(dev), window)
+            torch.from_numpy(doc_h).to(dev), window, packed_h, doc_h)
+
+
+#: run-length buckets of the K3 stream statistics (upper edges)
+RUN_BUCKETS = (1, 16, 64, 128, 256)
+
+
+def run_stats(packed: np.ndarray, doc: np.ndarray, num_reads: int,
+              g_cols: int, window: int) -> str:
+    """What K3's work depends on in one stream: runs and positions by run
+    length, the positions in runs holding both an emitting read and a
+    counted genome position (the runs that score), the genome positions
+    per such run, and the runs longer than ``window + 1`` (K3's long-run
+    walk) that score."""
+    start = (packed & (1 << PACK_M_BIT)) == 0
+    start[0] = True
+    starts = np.flatnonzero(start)
+    del start
+    lens = np.diff(starts, append=len(packed))
+    read = (((packed >> PACK_EMIT_BIT) & 1) == 1) & (doc >= 0) & (
+        doc < num_reads)
+    reads = np.add.reduceat(read.view(np.uint8), starts, dtype=np.int64)
+    del read
+    genome = (doc >= num_reads) & (doc.astype(np.int64) - num_reads < g_cols)
+    genomes = np.add.reduceat(genome.view(np.uint8), starts, dtype=np.int64)
+    del genome
+    both = (reads > 0) & (genomes > 0)
+    bucket = np.searchsorted(np.array(RUN_BUCKETS), lens)
+    names = [f"<={RUN_BUCKETS[0]}"] + [
+        f"{a + 1}-{b}" for a, b in zip(RUN_BUCKETS, RUN_BUCKETS[1:])] + [
+        f">{RUN_BUCKETS[-1]}"]
+    hist = " ".join(
+        f"{name}: {int(np.sum(bucket == i))} runs/"
+        f"{int(lens[bucket == i].sum())} pos"
+        for i, name in enumerate(names))
+    g_per = genomes[both]
+    g_hist = np.bincount(np.minimum(g_per, 17), minlength=18)
+    long_ = lens > window + 1
+    return (f"{len(lens)} runs ({hist}); scoring runs {int(both.sum())} "
+            f"holding {int(lens[both].sum())} positions, genome positions "
+            f"per scoring run mean {g_per.mean() if len(g_per) else 0:.3f} "
+            f"max {int(g_per.max()) if len(g_per) else 0} (1: "
+            f"{int(g_hist[1])}, 2: {int(g_hist[2])}, 3-16: "
+            f"{int(g_hist[3:17].sum())}, 17+: {int(g_hist[17])}); runs over "
+            f"window + 1 = {window + 1}: {int(long_.sum())}, scoring "
+            f"{int((long_ & both).sum())}")
+
+
+def _banded_planner_codes(fasta: str, ds, cfg, dev):
+    """One collection's compacted planner stream as ``[banded]`` hands it
+    to K3 (``fused_pipeline._score_program``): (codes, document ids) on
+    ``dev`` and its window, or None when nothing is banded."""
+    packed, doc, nc, window = fused_pipeline.plan_banded(
+        open_lcp(fasta), open_da(fasta), open_ebwt(fasta), ds.num_reads,
+        ds.num_genomes, cfg)[:4]
+    if not nc:
+        return None
+    return (torch.from_numpy(fused_pipeline.banded_codes(packed)).to(dev),
+            torch.from_numpy(fused_pipeline._doc_i32(doc)).to(dev), window)
 
 
 def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
     """K3 against its plain version on the first ``n`` positions of the
-    1F collection's staged stream, then K3 alone on the whole stream of
-    each collection: the four launches of ``[staged]``."""
+    1F collection's staged stream; then K3 alone on the whole stream of
+    each collection (the four launches of ``[staged]``), with the
+    stream's run statistics; then on each collection's planner stream
+    (the launches of ``[banded]``)."""
     cfg = LimeConfig()
     R = ds.num_reads
     g_pad = fused_pipeline._g_pad_for(ds.num_genomes)
-    packed_all, doc_all, window = _staged_codes(ds.collections[0], ds, cfg,
-                                                dev)
+    packed_all, doc_all, window, packed_h, doc_h = _staged_codes(
+        ds.collections[0], ds, cfg, dev)
     packed, doc = packed_all[:n], doc_all[:n]
     sims = {}
     for name, dt in (("kernel32", torch.int32), ("kernel8", torch.int8),
@@ -430,7 +505,11 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
     main = {"ms": 0.0, "graph_ms": 0.0, "bound_ms": 0.0}
     for i, fasta in enumerate(ds.collections):
         if i:
-            packed_all, doc_all, window = _staged_codes(fasta, ds, cfg, dev)
+            packed_all, doc_all, window, packed_h, doc_h = _staged_codes(
+                fasta, ds, cfg, dev)
+        log(f"[kernels] banded runs of the {os.path.basename(fasta)} "
+            f"staged stream: {run_stats(packed_h, doc_h, R, g_pad, window)}")
+        del packed_h, doc_h
         n_all = packed_all.shape[0]
         acc.zero_()
         bk.banded_sim_into(acc, packed_all, doc_all, window, R)
@@ -452,7 +531,45 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
             f"positions {bytes_bound_ms(5 * n_all):.4f} ms, cells "
             f"{bytes_bound_ms(8 * touched_all):.4f} ms) ({card})")
         del packed_all, doc_all
-    del acc
+    planner = {"streams": 0, "ms": 0.0, "graph_ms": 0.0, "bound_ms": 0.0}
+    banded_cfg = LimeConfig(fused=True, pair_stream=False, dense_threshold=0)
+    plane = torch.zeros((fused_pipeline._r_pad_for(R), g_pad),
+                        dtype=torch.int8, device=dev)
+    for fasta in ds.collections:
+        codes = _banded_planner_codes(fasta, ds, banded_cfg, dev)
+        if codes is None:
+            continue
+        packed_p, doc_p, window_p = codes
+        n_p = packed_p.shape[0]
+        acc.zero_()  # counts in int32 for the touched cells
+        bk.banded_sim_into(acc, packed_p, doc_p, window_p, R)
+        pairs_p = int(acc.sum().item())
+        touched_p = int(torch.count_nonzero(acc).item())
+        # the int8 plane [banded] adds into: 2 B per touched cell
+        bound_p = bytes_bound_ms(5 * n_p + 2 * touched_p)
+
+        def call_p():
+            bk.banded_sim_into(plane, packed_p, doc_p, window_p, R)
+
+        ms_p, g_p = event_ms(call_p), graph_ms([call_p])
+        planner["streams"] += 1
+        planner["ms"] += ms_p
+        planner["graph_ms"] += g_p
+        planner["bound_ms"] += bound_p
+        log(f"[kernels] banded on the {os.path.basename(fasta)} planner "
+            f"stream ([banded]): {n_p} positions, window {window_p}, "
+            f"{pairs_p} pair counts, {touched_p} cells, int8 plane: kernel "
+            f"{ms_p:.4f} ms per call, {g_p:.4f} ms in a graph "
+            f"({share(bound_p, g_p)} of the {bound_p:.4f} ms bound) ({card})")
+        del packed_p, doc_p
+    del acc, plane
+    log(f"[kernels] banded summed: four staged streams {main['ms']:.4f} ms "
+        f"per call, {main['graph_ms']:.4f} ms in graphs "
+        f"({share(main['bound_ms'], main['graph_ms'])} of "
+        f"{main['bound_ms']:.4f} ms); {planner['streams']} planner streams "
+        f"{planner['ms']:.4f} ms per call, {planner['graph_ms']:.4f} ms in "
+        f"graphs ({share(planner['bound_ms'], planner['graph_ms'])} of "
+        f"{planner['bound_ms']:.4f} ms) ({card})")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": round(ms, 4),
@@ -460,7 +577,10 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
             "bound_ms": round(bound, 6), "bound_by": "bytes",
             "library_ms": None, "main_path_ms": round(main["ms"], 4),
             "main_path_graph_ms": round(main["graph_ms"], 4),
-            "main_path_bound_ms": round(main["bound_ms"], 6)}
+            "main_path_bound_ms": round(main["bound_ms"], 6),
+            "banded_path_ms": round(planner["ms"], 4),
+            "banded_path_graph_ms": round(planner["graph_ms"], 4),
+            "banded_path_bound_ms": round(planner["bound_ms"], 6)}
 
 
 def main(argv=None) -> int:

@@ -1,21 +1,33 @@
-"""Time this checkout's pair-hit kernel against another checkout's, on one
-NVIDIA GPU, in one process.
+"""Time this checkout's kernel against another checkout's, on one NVIDIA
+GPU, in one process.
 
-    python -m lime_tpu_torch.kernel_ab --other DIR
+    python -m lime_tpu_torch.kernel_ab --other DIR [--kernel pair|banded]
+        [--pairs N]
 
 ``DIR`` is the root of another checkout of this repository (for example
-a ``git archive`` of an earlier commit, unpacked into ``build/``).  Per
-cap (16, 64, 255), both checkouts' ``ops/pair_kernels.pair_hits`` run on
-the same planner-shaped stream (1M rows from seed 1, tiled 32 times, as
-``chip_smoke.py`` builds it) in the order other, this, this, other.
-Each run is checked exact on read rows against this checkout's plain
-version and timed two ways: per call with CUDA events
+a ``git archive`` of an earlier commit, unpacked into a git-ignored
+directory).  Both sides run on the same inputs in the order other, this,
+this, other, each timed two ways: per call with CUDA events
 (:func:`utils.timing.event_ms`, the host's launch gap included) and as
-CUDA-graph replays of back-to-back launches
-(:func:`utils.timing.graph_ms`).  Prints the card's name and power limit,
-one line per run, and as the last line a JSON record of both sides'
-times per cap.  The other checkout builds its kernel into its own
-``build/``.
+CUDA-graph replays of back-to-back launches (:func:`utils.timing.graph_ms`).
+Prints the card's name and power limit, one line per run, and as the last
+line a JSON record of both sides' times.
+
+- ``pair`` (default): per cap (16, 64, 255), both checkouts'
+  ``ops/pair_kernels.pair_hits`` on the planner-shaped stream
+  ``chip_smoke.py`` builds (1M rows from seed 1, tiled 32 times), each
+  run checked exact on read rows against this checkout's plain version.
+- ``banded``: K3 on the whole 1F staged stream of the paper-shape dataset
+  (``N`` pairs, default 1,000,000; made under ``build/`` as
+  ``chip_smoke.py`` makes it, or reused) into an int32 accumulator.  The
+  other checkout's ``csrc/banded_pairs.cu`` is compiled by its own
+  ``ops/cuda_build.py`` into its ``build/`` and bound with this
+  checkout's ``banded_kernels.bind`` (the C interface is the same).
+  Before timing, both sides are checked exact against this checkout's
+  plain version on the stream's first 4M positions, in int32 and int8,
+  and equal to each other on the whole stream.
+
+The other checkout builds its kernel into its own ``build/``.
 """
 
 from __future__ import annotations
@@ -31,34 +43,35 @@ import types
 import numpy as np
 import torch
 
+from .ops import banded_kernels as bk
 from .ops import pair_kernels as pk
 from .utils.timing import event_ms, graph_ms
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORDER = ("other", "this", "this", "other")
 
-def load_other(root: str):
-    """``lime_tpu_torch/ops/pair_kernels.py`` of the checkout at ``root``,
+
+def load_other(root: str, name: str = "pair_kernels"):
+    """``lime_tpu_torch/ops/<name>.py`` of the checkout at ``root``,
     imported as a module of its own (its package ``__init__`` files are
-    not run)."""
+    not run, so only modules whose imports stay inside ``ops`` load)."""
     pkg = types.ModuleType("_other_ops")
     pkg.__path__ = [os.path.join(os.path.abspath(root), "lime_tpu_torch",
                                  "ops")]
     sys.modules["_other_ops"] = pkg
-    return importlib.import_module("_other_ops.pair_kernels")
+    return importlib.import_module(f"_other_ops.{name}")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("torch.cuda.is_available() is False: this "
-                         "comparison needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    sides = {"other": load_other(args.other), "this": pk}
+def other_banded_lib(root: str):
+    """The other checkout's K3, built from its own source into its own
+    ``build/`` and bound with this checkout's signature."""
+    cb = load_other(root, "cuda_build")
+    cb.compile_all(["banded_pairs"])
+    return bk.bind(cb.lib_path("banded_pairs"))
+
+
+def _pair_ab(other_root: str, smi: str) -> list:
+    sides = {"other": load_other(other_root), "this": pk}
     for mod in sides.values():
         mod.build()
     records = []
@@ -69,7 +82,7 @@ def main(argv=None) -> int:
         read = ((codes >> 4) & 1) == 0
         want = pk.pair_hits_plain(codes, cap, cap)
         rec = {"cap": cap, "rows": codes.shape[0]}
-        for side in ("other", "this", "this", "other"):
+        for side in ORDER:
             mod = sides[side]
             err = int((mod.pair_hits(codes, cap, cap) - want).abs()[read]
                       .max().item())
@@ -85,8 +98,95 @@ def main(argv=None) -> int:
                   flush=True)
         records.append(rec)
         del codes, read, want
+    return records
+
+
+def _banded_ab(other_root: str, pairs: int, smi: str) -> dict:
+    from .config import LimeConfig
+    from .formats.arrays import open_da, open_ebwt, open_lcp
+    from .host import _g_pad_for
+    from .native import plan_clusters
+    from .ops.fused_pass import staged_stream
+    from .synth_big import paper_dataset
+
+    libs = {"other": other_banded_lib(other_root), "this": bk.build()}
+    ds = paper_dataset(os.path.join(ROOT, "build"), pairs)[0]
+    cfg, fasta, R = LimeConfig(), ds.collections[0], ds.num_reads
+    lcp, da = open_lcp(fasta), open_da(fasta)
+    starts, lens = plan_clusters(lcp, da, R, cfg.alpha, threads=0)
+    packed_h, doc_h, window, _ = staged_stream(
+        starts, lens, da, open_ebwt(fasta), cfg, cfg.alpha, lcp)
+    packed, doc = torch.from_numpy(packed_h).cuda(), \
+        torch.from_numpy(doc_h).cuda()
+    del packed_h, doc_h, lcp, da
+    g_pad = _g_pad_for(ds.num_genomes)
+    n4 = 1 << 22
+    want = torch.zeros((R + 1, g_pad), dtype=torch.int32, device="cuda")
+    bk.banded_sim_plain(want, packed[:n4], doc[:n4], window, R)
+    whole = {}
+    for side, lib in libs.items():
+        for dt in (torch.int32, torch.int8):
+            got = torch.zeros((R + 1, g_pad), dtype=dt, device="cuda")
+            bk.launch(lib, got, packed[:n4], doc[:n4], window, R)
+            ref = want if dt == torch.int32 else (want & 255).to(torch.uint8)
+            if not torch.equal(got.view(ref.dtype), ref):
+                raise AssertionError(f"{side} {dt}: K3 != plain on the "
+                                     f"first {n4} positions")
+        acc = torch.zeros((R + 1, g_pad), dtype=torch.int32, device="cuda")
+        bk.launch(lib, acc, packed, doc, window, R)
+        whole[side] = acc
+    if not torch.equal(whole["other"], whole["this"]):
+        raise AssertionError("the two sides differ on the whole stream")
+    pair_counts = int(whole["this"].sum().item())
+    acc = whole.pop("this")
+    del want, whole
+    rec = {"stream": os.path.basename(fasta), "positions": packed.shape[0],
+           "window": window, "pair_counts": pair_counts}
+    for side in ORDER:
+        lib = libs[side]
+
+        def call():
+            bk.launch(lib, acc, packed, doc, window, R)
+
+        ev, gr = event_ms(call), graph_ms([call])
+        rec.setdefault(f"{side}_event_ms", []).append(round(ev, 4))
+        rec.setdefault(f"{side}_graph_ms", []).append(round(gr, 4))
+        print(f"[ab] K3 on the whole {rec['stream']} staged stream "
+              f"({rec['positions']} positions, window {window}), {side}: "
+              f"per-call events {ev:.4f} ms, graph replay {gr:.4f} ms "
+              f"({smi})", flush=True)
+    for timer in ("event", "graph"):
+        o = np.mean(rec[f"other_{timer}_ms"])
+        t = np.mean(rec[f"this_{timer}_ms"])
+        rec[f"speedup_{timer}"] = round(float(o / t), 3)
+    print(f"[ab] K3: this checkout {rec['speedup_event']}x per call and "
+          f"{rec['speedup_graph']}x by graph against the other ({smi})",
+          flush=True)
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--kernel", choices=("pair", "banded"), default="pair",
+                    help="the kernel to compare (default: pair)")
+    ap.add_argument("--pairs", type=int, default=1_000_000,
+                    help="read pairs of the paper-shape dataset (banded)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is False: this "
+                         "comparison needs an NVIDIA GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.kernel == "pair":
+        out = {"pair_hits_ab": _pair_ab(args.other, smi)}
+    else:
+        out = {"banded_ab": _banded_ab(args.other, args.pairs, smi)}
     print(smi)
-    print(json.dumps({"pair_hits_ab": records}), flush=True)
+    print(json.dumps(out), flush=True)
     return 0
 
 

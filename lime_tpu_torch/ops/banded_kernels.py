@@ -15,9 +15,14 @@ counter    CUDA kernel (csrc/banded_pairs.cu)            replaces
 banded     ``banded_sim_kernel<int8_t | int32_t>`` (K3)  ``_kernel``
 =========  ===========================================  ===================
 
-The kernel never materialises V: the segment-sum is fused as atomic adds
-(see the note at the top of the CUDA source).  int8 accumulators wrap
-mod 256, the reference's uchar counters; int32 ones do not.
+The kernel never materialises V: the segment-sum is fused as atomic adds.
+It scores each cluster run once (see the note at the top of the CUDA
+source): in a run no longer than ``window + 1`` the band covers the
+whole run, so an emitting read position of symbol s and occurrence rank
+k meets exactly the run's genome positions of symbol s and rank k; a
+block of ``TILE`` positions owns the runs that start in it, and longer
+runs keep the band walk.  int8 accumulators wrap mod 256, the
+reference's uchar counters; int32 ones do not.
 
 A CUDA tensor launches the kernel on the current stream (the library is
 built with nvcc at first use into ``build/lime_tpu_torch/``); a CPU
@@ -43,8 +48,11 @@ from . import cuda_build
 
 #: largest band window; clusters longer than this go to the host scorer
 W_MAX = 255
-#: context a position block needs: two windows left (a backward
-#: partner's own occurrence index), one right
+#: positions whose runs one block of the CUDA kernel owns (kTile in
+#: csrc/banded_pairs.cu: 2,048 in shared memory less a 256-position halo)
+TILE = 1792
+#: context a position block of the plain version needs: two windows left
+#: (a backward partner's own occurrence index), one right
 HALO_L, HALO_R = 512, 256
 #: positions per plain-version block: V (block, G_pad) int16 near 1 GB
 V_BLOCK_BYTES = 1 << 30
@@ -73,14 +81,38 @@ def build(verbose: bool = False) -> ctypes.CDLL:
                                           verbose).values():
             if verbose and log:
                 print(log, flush=True)
-        lib = ctypes.CDLL(_LIB_PATH)
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        for name in ("lime_banded_sim_i8", "lime_banded_sim_i32"):
-            fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, ll, i, i, i, vp, ll, vp]
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        _lib = bind(_LIB_PATH)
+        return _lib
+
+
+def bind(path: str) -> ctypes.CDLL:
+    """Load a compiled K3 library (this checkout's or, for a comparison,
+    another's: the C interface is the same) and declare its entry
+    points."""
+    lib = ctypes.CDLL(path)
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name in ("lime_banded_sim_i8", "lime_banded_sim_i32"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, ll, i, i, i, vp, ll, vp]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(lib: ctypes.CDLL, sim: torch.Tensor, packed: torch.Tensor,
+           doc: torch.Tensor, window: int, num_reads: int) -> None:
+    """Launch ``lib``'s K3 on the current stream on inputs that
+    :func:`banded_sim_into` has checked; raises if the launch is
+    refused.  Counts nothing."""
+    fn = (lib.lime_banded_sim_i8 if sim.dtype == torch.int8
+          else lib.lime_banded_sim_i32)
+    g_cols = sim.shape[1]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(packed.device)
+                             .cuda_stream)
+    with torch.cuda.device(packed.device):
+        rc = fn(packed.data_ptr(), doc.data_ptr(), packed.shape[0], window,
+                num_reads, g_cols, sim.data_ptr(), g_cols, stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_sim launch failed: CUDA error {rc}")
 
 
 def pack_positions(m: torch.Tensor, emit: torch.Tensor,
@@ -126,23 +158,12 @@ def banded_sim_into(sim: torch.Tensor, packed: torch.Tensor,
         return banded_sim_plain(sim, packed, doc, window, num_reads)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
-    n = packed.shape[0]
-    if n == 0 or window == 0:
+    if packed.shape[0] == 0 or window == 0:
         return sim
-    g_cols = sim.shape[1]
-    if sim.data_ptr() % 4 or g_cols % 4:
+    if sim.data_ptr() % 4 or sim.shape[1] % 4:
         raise ValueError("the int8 byte-wrap needs a 4-byte aligned "
                          "accumulator with a row length divisible by 4")
-    lib = build()
-    fn = (lib.lime_banded_sim_i8 if sim.dtype == torch.int8
-          else lib.lime_banded_sim_i32)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(packed.device)
-                             .cuda_stream)
-    with torch.cuda.device(packed.device):
-        rc = fn(packed.data_ptr(), doc.data_ptr(), n, window, num_reads,
-                g_cols, sim.data_ptr(), g_cols, stream)
-    if rc != 0:
-        raise RuntimeError(f"banded_sim launch failed: CUDA error {rc}")
+    launch(build(), sim, packed, doc, window, num_reads)
     LAUNCHES["banded"] += 1
     return sim
 

@@ -124,16 +124,33 @@ def _doc_i32(doc: np.ndarray) -> np.ndarray:
         doc.astype(np.int32)
 
 
+def plan_banded(lcp, da, ebwt, num_reads: int, num_genomes: int,
+                config: LimeConfig):
+    """The banded engine's plan of one collection: ``native.plan_native``
+    with the routing thresholds ``config`` sets, its stream padded to
+    ``_BLOCK`` with pad document ``num_reads + num_genomes``."""
+    return native.plan_native(
+        lcp, da, ebwt, num_reads, config.alpha, SYMBOL_RANK_LUT,
+        _DEGENERATE_BYTE, (num_reads + num_genomes) < 0xFFFF,
+        pad_block=_BLOCK, pad_doc=num_reads + num_genomes,
+        g_dense=_dense_threshold_for(num_genomes, config),
+        dense_min=_dense_min_for(num_genomes, config))
+
+
+def banded_codes(packed):
+    """The planner's position codes as K3 takes them (numpy or torch):
+    only the run-mask bit and the symbol, and every position may emit
+    (``lime_tpu``'s ``_score_program`` passes ``emit_ok=None``); genome
+    positions never do."""
+    return (packed & ((1 << _M_BIT) | 15)) | (1 << PACK_EMIT_BIT)
+
+
 def _score_program(sim: torch.Tensor, packed: torch.Tensor,
                    doc: torch.Tensor, window: int,
                    num_reads: int) -> None:
     """Banded scores of one compacted planner stream into ``sim`` (the
-    counterpart of ``lime_tpu``'s ``_score_program``).  Like it, this
-    reads only the planner's run-mask bit and symbol and lets every
-    position emit (``emit_ok=None``); genome positions never do."""
-    keep = (1 << _M_BIT) | 15
-    banded_sim_into(sim, (packed & keep) | (1 << PACK_EMIT_BIT), doc,
-                    window, num_reads)
+    counterpart of ``lime_tpu``'s ``_score_program``)."""
+    banded_sim_into(sim, banded_codes(packed), doc, window, num_reads)
 
 
 def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
@@ -154,13 +171,7 @@ def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
     pair = (config.pair_stream is not False and num_reads <= (1 << 28)
             and num_genomes <= (1 << 16))
     _check_memory(F * r_pad * g_pad * (4 if wide else 1), device, pair)
-    if pair:
-        dense_min = (16 if config.mxu_dense_min is None
-                     else config.mxu_dense_min)
-    else:
-        dense_min = _dense_min_for(num_genomes, config)
-        g_dense = _dense_threshold_for(num_genomes, config)
-        use_u16 = (num_reads + num_genomes) < 0xFFFF
+    dense_min = 16 if config.mxu_dense_min is None else config.mxu_dense_min
     f_feat = (4 if config.use_ebwt else 1) * K
     keep = []  # pinned staging buffers + their copies' events
     corr = []  # (file, rows, cols, vals) per rescued collection
@@ -253,11 +264,8 @@ def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
             else:
                 with timer.phase("plan"):
                     (packed, doc, nc, window, bad_start, bad_len,
-                     dense_start, dense_len) = native.plan_native(
-                        lcp, da, ebwt, num_reads, config.alpha,
-                        SYMBOL_RANK_LUT, _DEGENERATE_BYTE, use_u16,
-                        pad_block=_BLOCK, pad_doc=num_reads + num_genomes,
-                        g_dense=g_dense, dense_min=dense_min)
+                     dense_start, dense_len) = plan_banded(
+                        lcp, da, ebwt, num_reads, num_genomes, config)
                 banded_windows.append(window if nc else 0)
                 if nc:
                     with timer.phase("dispatch",

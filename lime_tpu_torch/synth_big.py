@@ -175,3 +175,31 @@ def make_big_dataset(root: str, num_pairs: int, num_genomes: int,
                       lineage_path=lineage_path, num_reads=num_pairs,
                       num_genomes=num_genomes, read_len=read_len,
                       positions_per_collection=n_positions)
+
+
+#: the paper shape: genomes, genome length and read length
+#: (``bench.py``'s shape)
+PAPER_GENOMES, PAPER_GENOME_LEN, PAPER_READ_LEN = 930, 8000, 100
+
+
+def paper_dataset(build_dir: str, pairs: int = 1_000_000):
+    """The paper-shape dataset of ``pairs`` read pairs (seed 17) under
+    ``build_dir/paper_data`` (``paper_data_<pairs>`` for another size),
+    made once and reused while its stamp file exists.  Returns
+    ``(BigDataset, built)``."""
+    root = os.path.join(build_dir, "paper_data" if pairs == 1_000_000
+                        else f"paper_data_{pairs}")
+    stamp = os.path.join(
+        root, f"v1_{pairs}_{PAPER_GENOMES}_{PAPER_GENOME_LEN}.ok")
+    built = not os.path.exists(stamp)
+    if built:
+        make_big_dataset(root, num_pairs=pairs, num_genomes=PAPER_GENOMES,
+                         genome_len=PAPER_GENOME_LEN, seed=17)
+        with open(stamp, "w") as f:
+            f.write("ok")
+    return BigDataset(
+        root=root, collections=[os.path.join(root, f"col_{t}.fasta")
+                                for t in ("1F", "1RC", "2F", "2RC")],
+        lineage_path=os.path.join(root, "LineageFile.csv"),
+        num_reads=pairs, num_genomes=PAPER_GENOMES,
+        read_len=PAPER_READ_LEN, positions_per_collection=0), built

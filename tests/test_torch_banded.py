@@ -7,6 +7,16 @@ lime_tpu's XLA ``banded_partial_sim`` and against ``_pallas_partial_sim``
 running the Pallas kernel in interpret mode, on the random streams of
 ``tests/test_pallas_kernel.py``.  The CUDA kernel is held against the
 plain version in ``test_torch_cuda.py``.
+
+The CUDA kernel computes K3 by its run rule (``csrc/banded_pairs.cu``):
+in a run no longer than ``window + 1`` an emitting read position of
+symbol s and occurrence rank k adds 1 for each genome position of its
+run with symbol s and rank k; longer runs keep the band walk.
+:func:`_run_model` is a numpy model of that rule, held here equal to the
+plain version and to lime_tpu's formulations on random streams and on
+the real streams of the staged path and the fused banded engine, where
+no run longer than ``window + 1`` holds both an emitting read and a
+genome position.
 """
 
 import jax.numpy as jnp
@@ -15,9 +25,14 @@ import pytest
 import torch
 
 from lime_tpu.parallel import sharded as jsh
+from lime_tpu_torch import LimeConfig, host, native
+from lime_tpu_torch.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch.ops import banded_kernels as bk
+from lime_tpu_torch.ops import fused_pass as tfpass
+from lime_tpu_torch.ops import fused_pipeline as tfp
 from lime_tpu_torch.parallel import sharded as tsh
 
+from .synth import make_dataset
 from .test_pallas_kernel import _rand_stream
 from .test_torch_selfcontained import ensure_reference_native
 
@@ -196,3 +211,209 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     got = _torch(m, doc, sym, 100, 7, 12, None)
     assert bk.LAUNCHES["banded"] == before
     assert np.array_equal(got, _jax(m, doc, sym, 100, 7, 12, None))
+
+
+# ---------------------------------------------------------------------------
+# K3's run rule: a numpy model, random and real streams
+# ---------------------------------------------------------------------------
+
+def _runs(packed):
+    """Per position its run index; per run its start and length.  A run
+    is a position with m = 0 (or the stream's first) and every m = 1
+    position after it."""
+    start = ((packed >> bk.PACK_M_BIT) & 1) == 0
+    start[0] = True
+    starts = np.flatnonzero(start)
+    return np.cumsum(start) - 1, starts, np.diff(starts, append=len(packed))
+
+
+def _roles(packed, doc, num_reads, g_cols):
+    """(emitting read, counted genome partner) per position."""
+    doc = doc.astype(np.int64)
+    read = (((packed >> bk.PACK_EMIT_BIT) & 1) == 1) & (doc >= 0) & (
+        doc < num_reads)
+    return read, (doc >= num_reads) & (doc - num_reads < g_cols)
+
+
+def _run_occ(packed, doc):
+    """Each position's rank among its run's earlier positions of the same
+    (document, symbol)."""
+    run = _runs(packed)[0]
+    n = len(packed)
+    order = np.lexsort((np.arange(n), packed & 15, doc, run))
+    key = np.stack([run, doc.astype(np.int64), packed & 15])[:, order]
+    new = np.ones(n, bool)
+    new[1:] = np.any(key[:, 1:] != key[:, :-1], axis=0)
+    first = np.maximum.accumulate(np.where(new, np.arange(n), 0))
+    occ = np.empty(n, np.int64)
+    occ[order] = np.arange(n) - first
+    return occ
+
+
+def _band_walk(sim, packed, doc, window, num_reads, lo, hi):
+    """The band formulation on one run [lo, hi): occ looks back at most
+    ``window`` positions, partners lie within ``window`` either way."""
+    sym, doc = (packed[lo:hi] & 15).astype(np.int64), doc[lo:hi]
+    read, genome = _roles(packed[lo:hi], doc, num_reads, sim.shape[1])
+    L = hi - lo
+    occ = np.array([np.sum((doc[max(0, i - window):i] == doc[i])
+                           & (sym[max(0, i - window):i] == sym[i]))
+                    for i in range(L)])
+    for i in np.flatnonzero(read):
+        for j in range(max(0, i - window), min(L, i + window + 1)):
+            if j != i and genome[j] and sym[j] == sym[i] \
+                    and occ[j] == occ[i]:
+                sim[doc[i], doc[j] - num_reads] += 1
+
+
+def _run_model(packed, doc, window, num_reads, g_cols):
+    """K3's counts by its run rule: an int64 ``(num_reads + 1, g_cols)``
+    accumulator."""
+    sim = np.zeros((num_reads + 1, g_cols), np.int64)
+    run, starts, lens = _runs(packed)
+    short = lens[run] <= window + 1
+    read, genome = _roles(packed, doc, num_reads, g_cols)
+    occ, sym, doc64 = _run_occ(packed, doc), packed & 15, doc.astype(np.int64)
+
+    def key(i):
+        return (run[i] * 16 + sym[i]) * 256 + occ[i]
+
+    rd = np.flatnonzero(short & read)
+    gn = np.flatnonzero(short & genome)
+    order = np.argsort(key(gn), kind="stable")
+    gkey, gcol = key(gn)[order], doc64[gn][order] - num_reads
+    lo = np.searchsorted(gkey, key(rd), "left")
+    cnt = np.searchsorted(gkey, key(rd), "right") - lo
+    first = np.repeat(lo - np.cumsum(cnt) + cnt, cnt)
+    np.add.at(sim, (np.repeat(doc64[rd], cnt),
+                    gcol[first + np.arange(cnt.sum())]), 1)
+    for r in np.flatnonzero(lens > window + 1):
+        _band_walk(sim, packed, doc, window, num_reads, starts[r],
+                   starts[r] + lens[r])
+    return sim
+
+
+def _long_runs_that_score(packed, doc, window, num_reads, g_cols):
+    """Runs longer than ``window + 1`` that hold both an emitting read
+    and a counted genome position."""
+    run, _, lens = _runs(packed)
+    read, genome = _roles(packed, doc, num_reads, g_cols)
+    both = (np.bincount(run, read, len(lens)) > 0) & (
+        np.bincount(run, genome, len(lens)) > 0)
+    return np.flatnonzero(both & (lens > window + 1))
+
+
+def _plain(packed, doc, window, num_reads, g_cols):
+    sim = torch.zeros((num_reads + 1, g_cols), dtype=torch.int32)
+    bk.banded_sim_plain(sim, torch.from_numpy(packed),
+                        torch.from_numpy(doc), window, num_reads)
+    return sim.numpy()
+
+
+def _run_stream(rng, window, num_reads, num_refs, n):
+    """Runs of random lengths in [1, window + 2], with runs of exactly
+    window, window + 1 and window + 2 among them, random documents (few
+    enough to repeat in a run), symbols and emit gates; m[0] False."""
+    lens = [window, window + 1, window + 2] * 2
+    while sum(lens) < n:
+        lens.append(int(rng.integers(1, window + 3)))
+    rng.shuffle(lens)
+    m = np.ones(sum(lens), bool)
+    m[np.cumsum([0] + lens[:-1])] = False
+    n = len(m)
+    doc = rng.integers(0, num_reads + num_refs, size=n).astype(np.int32)
+    sym = rng.integers(0, 4, size=n).astype(np.int32)
+    emit = rng.random(n) < 0.7
+    return m, doc, sym, emit
+
+
+@pytest.mark.parametrize("window,num_reads,num_refs", [
+    (7, 40, 6), (64, 30, 8), (255, 12, 5)])
+def test_run_model_matches_plain_xla_and_pallas(window, num_reads, num_refs):
+    """The run rule equals the plain version, lime_tpu's XLA formulation
+    and the Pallas kernel (interpret mode) with ``_scatter_sim``, on runs
+    of every length up to window + 2 with repeated documents (occ > 0)
+    and a random emit gate."""
+    rng = np.random.default_rng(window)
+    m, doc, sym, emit = _run_stream(rng, window, num_reads, num_refs, 4000)
+    packed = host.pack_stream(m, emit, sym)
+    g_cols = 128
+    want = _run_model(packed, doc, window, num_reads, g_cols)
+    assert want.any() and _run_occ(packed, doc).max() > 0
+    assert len(_long_runs_that_score(packed, doc, window, num_reads, g_cols))
+    assert np.array_equal(_plain(packed, doc, window, num_reads, g_cols),
+                          want)
+    args = (m, doc, sym, num_reads, num_refs, window, emit)
+    assert np.array_equal(_jax(*args), want[:num_reads, :num_refs])
+    assert np.array_equal(_pallas(*args), want[:num_reads, :num_refs])
+
+
+@pytest.fixture(scope="module")
+def deep(tmp_path_factory):
+    """Deep coverage of short genomes: runs past 255 positions, routed to
+    the host scorer."""
+    return make_dataset(str(tmp_path_factory.mktemp("deep")), num_pairs=800,
+                        read_len=100, genome_lens=(500, 400), seed=11)
+
+
+def _real_streams(ds, kind):
+    """Per collection of ``ds``: (codes, document ids, window) of the
+    stream K3 scores on the staged path or in the fused banded engine."""
+    cfg = LimeConfig(fused=True, pair_stream=False, dense_threshold=0) \
+        if kind == "planner" else LimeConfig()
+    for col in ds.collections:
+        lcp, da, ebwt = open_lcp(col), open_da(col), open_ebwt(col)
+        if kind == "staged":
+            starts, lens = native.plan_clusters(lcp, da, ds.num_reads,
+                                                cfg.alpha)
+            packed, doc, window, _ = tfpass.staged_stream(
+                starts, lens, da, ebwt, cfg, cfg.alpha, lcp)
+            yield packed, doc, window
+        else:
+            packed, doc, nc, window = tfp.plan_banded(
+                lcp, da, ebwt, ds.num_reads, ds.num_genomes, cfg)[:4]
+            if nc:
+                yield tfp.banded_codes(packed), tfp._doc_i32(doc), window
+
+
+@pytest.mark.parametrize("kind", ["staged", "planner"])
+@pytest.mark.parametrize("which", ["dataset", "deep"])
+def test_run_model_matches_plain_on_real_streams(request, which, kind):
+    """On every collection's real stream the run rule equals the plain
+    version, and no run longer than window + 1 holds both an emitting read
+    and a genome position: the kernel's long-run path is off these
+    paths."""
+    ds = request.getfixturevalue(which)
+    g_cols = host._g_pad_for(ds.num_genomes)
+    n_streams = 0
+    for packed, doc, window in _real_streams(ds, kind):
+        n_streams += 1
+        want = _run_model(packed, doc, window, ds.num_reads, g_cols)
+        assert want.any()
+        assert np.array_equal(
+            _plain(packed, doc, window, ds.num_reads, g_cols), want)
+        assert not len(_long_runs_that_score(packed, doc, window,
+                                             ds.num_reads, g_cols))
+    assert n_streams == len(ds.collections)
+
+
+def test_kernel_ab_finds_another_checkouts_banded_build(tmp_path):
+    """``kernel_ab --kernel banded`` builds the other checkout's K3 with
+    that checkout's own ``cuda_build``: from its source into its own
+    ``build/``."""
+    import os
+    import shutil
+
+    from lime_tpu_torch import kernel_ab
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = tmp_path / "other"
+    shutil.copytree(os.path.join(root, "lime_tpu_torch", "ops"),
+                    other / "lime_tpu_torch" / "ops")
+    shutil.copytree(os.path.join(root, "lime_tpu_torch", "csrc"),
+                    other / "lime_tpu_torch" / "csrc")
+    cb = kernel_ab.load_other(str(other), "cuda_build")
+    assert cb.__name__ == "_other_ops.cuda_build"
+    assert cb.lib_path("banded_pairs") == str(
+        other / "build" / "lime_tpu_torch" / "libbanded_pairs.so")
+    assert os.path.exists(cb.source_path("banded_pairs"))

@@ -305,8 +305,8 @@ def _banded_stream(rng, n, num_reads, num_refs, max_run, emit_frac=0.8):
 ])
 def test_banded_kernel_matches_plain(cuda, acc, num_reads, num_refs):
     """K3 equals its plain version at window 255 on a stream whose
-    clusters cross the kernel's 1024-position tiles and the plain
-    version's blocks; one launch is counted."""
+    clusters cross the kernel's tiles and the plain version's blocks; one
+    launch is counted."""
     rng = np.random.default_rng(num_reads + num_refs)
     n = 12 * 1024 + 77
     packed_h, doc_h = _banded_stream(rng, n, num_reads, num_refs, 255)
@@ -330,6 +330,111 @@ def test_banded_kernel_matches_plain(cuda, acc, num_reads, num_refs):
     if num_reads == 3:
         wide = sims[0] if acc == torch.int32 else None
         assert wide is None or wide.max() > 255
+
+
+def _k3_runs(runs, n, rng, num_reads, num_refs, window, pad_doc):
+    """Packed codes and document ids of ``n`` positions: short random runs
+    (at most ``window + 1`` long) everywhere except where ``runs`` places
+    a run, given as (start, documents, symbols); pad positions (code 0,
+    ``pad_doc``, as the planner pads) fill what ``pad_doc`` leaves."""
+    packed_h, doc_h = _banded_stream(rng, n, num_reads, num_refs,
+                                     window + 1)
+    last = 0
+    for start, docs, syms in runs:
+        L = len(docs)
+        if start < last:  # runs do not overlap
+            continue
+        last = start + L
+        end = min(n, start + L)
+        codes = host.pack_stream(np.arange(L) > 0, rng.random(L) < 0.8,
+                                 syms)
+        packed_h[start:end], doc_h[start:end] = codes[:end - start], \
+            docs[:end - start]
+        if end < n:  # the next position starts a run
+            packed_h[end] &= ~np.uint8(1 << host.PACK_M_BIT)
+    if pad_doc is not None:
+        packed_h[n - 100:] = 0
+        doc_h[n - 100:] = pad_doc
+    return packed_h, doc_h
+
+
+def _k3_case(kind, rng):
+    """(packed, doc, num_reads, num_refs, window) of one edge case."""
+    tile = bk.TILE
+    num_reads, num_refs, window, n = 300, 20, 255, 6 * tile + 77
+    genome = num_reads + rng.integers(0, num_refs, size=8)
+    runs = []
+
+    def mixed(L, docs=None):
+        docs = rng.choice(np.concatenate([rng.integers(0, num_reads, 8),
+                                          genome]) if docs is None else
+                          docs, size=L).astype(np.int32)
+        return docs, rng.integers(0, 4, size=L)
+
+    if kind == "tile_edges":  # short runs across every tile edge
+        for e in range(tile, n, tile):
+            L = int(rng.integers(2, window + 2))
+            runs.append((e - L // 2, *mixed(L)))
+    elif kind == "last_position":  # window + 1 long from a tile's last
+        for e in range(tile, n - window, tile):
+            runs.append((e - 1, *mixed(window + 1)))
+    elif kind == "long_mixed":  # the long-run walk, one over 1,280 long
+        window = 64
+        for i, e in enumerate(range(tile, n - 3000, tile)):
+            L = 3000 if i == 0 else int(rng.integers(window + 2, 600))
+            runs.append((e - L // 3, *mixed(L)))
+    elif kind == "one_symbol":  # one read and one genome, one symbol
+        num_reads, num_refs = 3, 5
+        for i, start in enumerate(range(0, n - 256, 256)):
+            L = int(rng.integers(255, 257))
+            # the read's run half or nearly all of it (occ up to 254)
+            cut = int(rng.integers(L // 2 - 20, L // 2 + 20) if i % 2
+                      else rng.integers(L - 3, L))
+            docs = np.full(L, rng.integers(0, num_reads), np.int32)
+            docs[cut:] = num_reads
+            runs.append((start, docs, np.full(L, int(rng.integers(0, 4)))))
+    elif kind == "short_padded":  # below one tile, planner pads, and
+        # num_refs not a multiple of 4; genome ids past G_pad count nothing
+        num_refs, n = 7, 1001
+        genome = num_reads + rng.integers(0, host._g_pad_for(num_refs) + 9,
+                                          size=8)
+        runs.append((100, *mixed(window + 1)))
+    packed_h, doc_h = _k3_runs(runs, n, rng, num_reads, num_refs, window,
+                               num_reads + num_refs
+                               if kind == "short_padded" else None)
+    return packed_h, doc_h, num_reads, num_refs, window
+
+
+@pytest.mark.parametrize("acc", [torch.int32, torch.int8])
+@pytest.mark.parametrize("kind", ["tile_edges", "last_position",
+                                  "long_mixed", "one_symbol",
+                                  "short_padded", "unaligned"])
+def test_banded_kernel_edges_match_plain(cuda, kind, acc):
+    """K3 equals its plain version on runs across its tile edges, a
+    window + 1 run from a tile's last position, long mixed runs (the
+    long-run walk), 255- and 256-position runs of one read and one genome
+    in one symbol (occ up to 254; int8 counts wrap), a padded stream
+    shorter than one tile with num_refs = 7, and inputs that are not
+    16-byte aligned; each call counts one launch."""
+    rng = np.random.default_rng(len(kind))
+    base = "tile_edges" if kind == "unaligned" else kind
+    packed_h, doc_h, num_reads, num_refs, window = _k3_case(base, rng)
+    g_pad = host._g_pad_for(num_refs)
+    sims = []
+    for dev in (CPU, cuda):
+        packed = torch.from_numpy(packed_h).to(dev)
+        doc = torch.from_numpy(doc_h).to(dev)
+        if kind == "unaligned":
+            packed, doc = packed[1:], doc[1:]
+        sim = torch.zeros((num_reads + 1, g_pad), dtype=acc, device=dev)
+        before = bk.LAUNCHES["banded"]
+        bk.banded_sim_into(sim, packed, doc, window, num_reads)
+        assert bk.LAUNCHES["banded"] == before + (dev.type == "cuda")
+        sims.append(sim.cpu().numpy())
+    assert sims[0].any()
+    assert np.array_equal(sims[1], sims[0])
+    if kind == "one_symbol" and acc == torch.int32:
+        assert sims[0].max() > 255
 
 
 def test_banded_kernel_refuses_missing_drop_row(cuda):
