@@ -38,7 +38,14 @@ code is non-zero:
    the .clrs/.res checkpoints): byte-identical, K3 launched per
    collection;
 8. banded: the fused banded engine, ``LimeConfig(fused=True,
-   pair_stream=False, dense_threshold=0)``: byte-identical, K3 launched.
+   pair_stream=False, dense_threshold=0)``: byte-identical, K3 launched;
+9. blocked: the fused serving path in the row-blocked mode, forced by
+   ``LIME_HBM_BUDGET`` = 1 GiB (B = 131,072 reads: 8 blocks), once in
+   one pass and once with ``LIME_STREAM_BUDGET`` at half the streams'
+   estimate (2 owner passes): byte-identical, the pair-hit kernel
+   launched once per chunk per row block of its pass in every bucket;
+   B, blocks, passes, the resident stream and dense-chunk bytes and the
+   peak device memory beside ``[e2e]``'s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
@@ -65,11 +72,9 @@ import torch  # noqa: E402
 from lime_tpu_torch import LimeConfig, native, reference  # noqa: E402
 from lime_tpu_torch import run_paired  # noqa: E402
 from lime_tpu_torch import pipeline as staged_pipeline  # noqa: E402
-from lime_tpu_torch.constants import SYMBOL_RANK_LUT  # noqa: E402
 from lime_tpu_torch.formats.arrays import (  # noqa: E402
     open_da, open_ebwt, open_lcp)
-from lime_tpu_torch.host import (  # noqa: E402
-    _DEGENERATE_BYTE, PACK_EMIT_BIT, PACK_M_BIT)
+from lime_tpu_torch.host import PACK_EMIT_BIT, PACK_M_BIT  # noqa: E402
 from lime_tpu_torch.ops import banded_kernels as bk  # noqa: E402
 from lime_tpu_torch.ops import cuda_build  # noqa: E402
 from lime_tpu_torch.ops import fused_pipeline  # noqa: E402
@@ -176,11 +181,10 @@ def _check_pair(name, codes, window, cap):
 def _plan_codes(fasta: str, ds, dev):
     """One collection's pair chunks as ``run_fused`` plans them: (per
     chunk ``(bucket, codes)`` unpacked on ``dev``, windows per bucket)."""
-    arrays, chunks, windows, row_bits = native.plan_pairs_packed(
+    arrays, chunks, windows, row_bits = fused_pipeline._plan_pairs(
         open_lcp(fasta, mmap=True), open_da(fasta, mmap=True),
-        open_ebwt(fasta, mmap=True), ds.num_reads, LimeConfig().alpha,
-        SYMBOL_RANK_LUT, _DEGENERATE_BYTE.astype(np.uint8), dense_min=16,
-        num_refs=ds.num_genomes, host_num=0)[:4]
+        open_ebwt(fasta, mmap=True), ds.num_reads, ds.num_genomes,
+        LimeConfig(fused=True))[:4]
     return tps.chunk_codes(arrays, chunks, row_bits, dev), windows
 
 
@@ -583,6 +587,68 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
             "banded_path_bound_ms": round(planner["bound_ms"], 6)}
 
 
+def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
+                  e2e_peak: int) -> dict:
+    """The row-blocked fused mode at the paper shape, in one pass and in
+    owner passes; returns each kernel's launches per run, counted from 0
+    just before it (K3 must stay at 0: the mode scores pair streams)."""
+    est = fused_pipeline.stream_estimate(ds.collections, ds.num_reads)
+    runs = {"blocked": {"LIME_HBM_BUDGET": str(1 << 30)},
+            "blocked_passes": {"LIME_HBM_BUDGET": str(1 << 30),
+                               "LIME_STREAM_BUDGET": str(est // 2 + 1)}}
+    out = {name: {} for name in REPLACES}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        log(f"[blocked] card memory {total} B, {free} B free before the "
+            f"runs; the automatic budget would be "
+            f"{max(free - fused_pipeline.MEMORY_HEADROOM, 0)} B ({card})")
+    for label, env in runs.items():
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            launches, _ = drive(label, ds, LimeConfig(fused=True), ref_csv,
+                                card, dev, [pk, bk])
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        st = fused_pipeline.LAST_RUN
+        want = dict(zip(CAP_OF, st["launches_per_bucket"]))
+        pair = {name: launches[name] for name in CAP_OF}
+        passes = label == "blocked_passes"
+        if (st["engine"] != "blocked" or (st["n_pass"] >= 2) != passes
+                or pair != want or not all(pair.values())
+                or launches["banded"]
+                or (not passes and list(want.values()) != [
+                    n * st["blocks"] for n in st["chunks_per_bucket"]])):
+            raise AssertionError(
+                f"[{label}] engine {st['engine']}, {st['n_pass']} passes, "
+                f"{st.get('blocks')} blocks, chunks "
+                f"{st.get('chunks_per_bucket')}: launches {launches}, "
+                f"the plan implies {want} and no K3")
+        mem, res = st["memory"], st["resident_bytes"]
+        stack = len(ds.collections) * st["B"] * fused_pipeline._g_pad_for(
+            ds.num_genomes)
+        peak = mem.get("peak_bytes_in_use", 0)
+        rest = peak - stack - res["pair_streams"] - res["dense_chunks"]
+        log(f"[{label}] B={st['B']} reads, {st['blocks']} blocks, "
+            f"{st['n_pass']} owner passes (streams estimated at {est} B); "
+            f"pair-kernel launches {pair} = chunks "
+            f"{st['chunks_per_bucket']} x blocks of their pass; K3 "
+            f"launches 0; stack {stack} B; resident pair "
+            f"streams {res['pair_streams']} B (largest pass), dense chunks "
+            f"{res['dense_chunks']} B; peak device memory {peak} B, "
+            f"[e2e] {e2e_peak} B ({peak - e2e_peak:+d} B); peak less stack, "
+            f"streams and dense chunks {rest} B ({card})")
+        for name in REPLACES:
+            out[name]["owner_passes" if passes else "one_pass"] = \
+                launches[name]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
@@ -602,6 +668,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     timed("cascade", phase_cascade, dev)
     ds, ref_csv, launches = timed("e2e", phase_e2e, args.pairs, smi, dev)
+    e2e_peak = fused_pipeline.LAST_RUN["memory"]["peak_bytes_in_use"]
     records = timed("kernels", phase_kernels, ds, smi, dev, launches)
     records["banded"] = timed("kernels_banded", phase_banded_kernel, ds,
                               smi, dev)
@@ -616,10 +683,13 @@ def main(argv=None) -> int:
                              f"(one per collection), banded "
                              f"{banded['banded']}")
     launches["banded"] = staged["banded"]
+    blocked = timed("blocked", phase_blocked, ds, ref_csv, smi, dev,
+                    e2e_peak)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                **records[k]} for k in REPLACES]
+                **records[k], "blocked_path_launches": blocked[k]}
+               for k in REPLACES]
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

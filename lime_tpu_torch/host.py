@@ -7,6 +7,7 @@ the reference and stays unchanged, so the port keeps these copies and
 
 - ``_DEGENERATE_BYTE``                       lime_tpu/ops/fused_pass.py
 - ``classify_block_size`` / ``pad_rows_for`` lime_tpu/ops/classify_tpu.py
+- ``pair_rows_local``                        lime_tpu/parallel/sharded.py
 - ``_g_pad_for`` / ``_r_pad_for`` / ``_classify_block_for``,
   ``_score_small_dense`` / ``_rescue_sparse`` / ``_rescue``
                                              lime_tpu/ops/fused_pipeline.py
@@ -18,7 +19,8 @@ the reference and stays unchanged, so the port keeps these copies and
                                              lime_tpu/ops/fused_pipeline.py
 - ``pack_stream`` and its bit positions      lime_tpu/ops/pallas_kernels.py
 
-``tests/test_torch_staged.py`` pins the last three rows.  Where an
+``tests/test_torch_staged.py`` pins the last three rows and
+``tests/test_torch_blocked.py`` pins ``pair_rows_local``.  Where an
 original branches on whether the native library loaded, the copy calls
 the library: the port's loader raises rather than falls back.
 """
@@ -74,6 +76,14 @@ def _classify_block_for(num_reads: int) -> int:
 
 def _r_pad_for(num_reads: int) -> int:
     return pad_rows_for(num_reads + 1)
+
+
+def pair_rows_local(num_reads: int, dp: int) -> int:
+    """Read rows each of ``dp`` owners holds, aligned to the cascade
+    block: the planner's ownership split (``native.plan_pairs_packed``'s
+    ``rows_local``) and the row range of each owner pass."""
+    block = classify_block_size(-(-(num_reads + 1) // dp))
+    return -(-(num_reads + 1) // (dp * block)) * block
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Time this checkout's kernel against another checkout's, on one NVIDIA
 GPU, in one process.
 
-    python -m lime_tpu_torch.kernel_ab --other DIR [--kernel pair|banded]
-        [--pairs N]
+    python -m lime_tpu_torch.kernel_ab --other DIR
+        [--kernel pair|banded|replay] [--pairs N]
 
 ``DIR`` is the root of another checkout of this repository (for example
 a ``git archive`` of an earlier commit, unpacked into a git-ignored
@@ -26,6 +26,13 @@ line a JSON record of both sides' times.
   Before timing, both sides are checked exact against this checkout's
   plain version on the stream's first 4M positions, in int32 and int8,
   and equal to each other on the whole stream.
+- ``replay``: the row-blocked mode's replays of the same dataset's 1F
+  collection, as ``chip_smoke.py``'s ``[blocked]`` phase runs them (8
+  blocks of 131,072 reads): both checkouts' ``pair_score_packed_offset``
+  over every pair chunk, and ``_dense_chunk_offset`` over every dense
+  chunk, into one int8 plane, each block checked equal between the
+  sides.  Times are of all 8 blocks' replays, per call only (the
+  replays may wait for the device, which a graph cannot hold).
 
 The other checkout builds its kernel into its own ``build/``.
 """
@@ -53,13 +60,18 @@ ORDER = ("other", "this", "this", "other")
 
 def load_other(root: str, name: str = "pair_kernels"):
     """``lime_tpu_torch/ops/<name>.py`` of the checkout at ``root``,
-    imported as a module of its own (its package ``__init__`` files are
-    not run, so only modules whose imports stay inside ``ops`` load)."""
-    pkg = types.ModuleType("_other_ops")
-    pkg.__path__ = [os.path.join(os.path.abspath(root), "lime_tpu_torch",
-                                 "ops")]
-    sys.modules["_other_ops"] = pkg
-    return importlib.import_module(f"_other_ops.{name}")
+    imported as ``_other.ops.<name>``: that checkout's package under a
+    name of its own, whose top ``__init__`` is not run, so only what
+    ``name`` imports loads.  A new ``root`` drops the modules loaded
+    from the previous one."""
+    path = os.path.join(os.path.abspath(root), "lime_tpu_torch")
+    if getattr(sys.modules.get("_other"), "__path__", None) != [path]:
+        for mod in [m for m in sys.modules if m.split(".")[0] == "_other"]:
+            del sys.modules[mod]
+        pkg = types.ModuleType("_other")
+        pkg.__path__ = [path]
+        sys.modules["_other"] = pkg
+    return importlib.import_module(f"_other.ops.{name}")
 
 
 def other_banded_lib(root: str):
@@ -165,14 +177,95 @@ def _banded_ab(other_root: str, pairs: int, smi: str) -> dict:
     return rec
 
 
+#: reads per row block of ``[blocked]`` (a 1 GiB LIME_HBM_BUDGET)
+REPLAY_BLOCK = 131_072
+
+
+def _replay_ab(other_root: str, pairs: int, smi: str,
+               dev: torch.device = torch.device("cuda")) -> dict:
+    from .config import LimeConfig
+    from .formats.arrays import open_da, open_ebwt, open_lcp
+    from .host import B_BLK, C_BLK, K, PR, _g_pad_for, pack_chunks
+    from .ops import dense_score, pair_score
+    from .ops.fused_pipeline import _plan_pairs
+    from .synth_big import paper_dataset
+
+    if dev.type == "cuda":
+        load_other(other_root).build()
+        pk.build()
+    sides = {"other": (load_other(other_root, "pair_score"),
+                       load_other(other_root, "dense_score")),
+             "this": (pair_score, dense_score)}
+    ds = paper_dataset(os.path.join(ROOT, "build"), pairs)[0]
+    cfg = LimeConfig(fused=True)
+    fasta, R, G = ds.collections[0], ds.num_reads, ds.num_genomes
+    g_pad = _g_pad_for(G)
+    da, ebwt = open_da(fasta), open_ebwt(fasta)
+    arrays, chunks, windows, row_bits, den_s, den_l = _plan_pairs(
+        open_lcp(fasta), da, ebwt, R, G, cfg)[:6]
+    keep = []
+    uploaded = pair_score.pair_upload(arrays, chunks, dev, keep)
+    dense = [tuple(pair_score.to_device(a, dev, keep) for a in c)
+             for c in pack_chunks(den_s, den_l, da, ebwt, R, G, g_pad)[0]]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    keep.clear()
+    B, f_feat = REPLAY_BLOCK, (4 if cfg.use_ebwt else 1) * K
+    bases = range(0, R + 1, B)
+    stack = torch.zeros((1, B, g_pad), dtype=torch.int8, device=dev)
+
+    def replay(side, what, only=None):
+        ps, dsc = sides[side]
+        for base in (bases if only is None else [only]):
+            if what == "pair":
+                ps.pair_score_packed_offset(stack, 0, uploaded, chunks,
+                                            windows, row_bits, base)
+            else:
+                for ridx, gidx, cmap, rid in dense:
+                    dsc._dense_chunk_offset(stack, 0, ridx, gidx, cmap, rid,
+                                            base, B_BLK, C_BLK, PR, f_feat,
+                                            g_pad)
+
+    for what in ("pair", "dense"):
+        for base in bases:
+            got = {}
+            for side in sides:
+                stack.zero_()
+                replay(side, what, base)
+                got[side] = stack.clone()
+            if not torch.equal(got["other"], got["this"]):
+                raise AssertionError(f"{what} replay at block {base}: the "
+                                     "two sides differ")
+        del got
+    rec = {"stream": os.path.basename(fasta), "blocks": len(bases),
+           "block_reads": B, "pair_chunks": len(chunks),
+           "dense_chunks": len(dense)}
+    for what in ("pair", "dense"):
+        n = len(bases) * (len(chunks) if what == "pair" else len(dense))
+        for side in ORDER:
+            ms = event_ms(lambda: replay(side, what))
+            rec.setdefault(f"{what}_{side}_ms", []).append(round(ms, 3))
+            print(f"[ab] {what} replays of {rec['stream']}, {side}: {n} "
+                  f"replays over {len(bases)} blocks in {ms:.3f} ms, "
+                  f"{ms / n:.4f} ms each ({smi})", flush=True)
+        o = np.mean(rec[f"{what}_other_ms"])
+        t = np.mean(rec[f"{what}_this_ms"])
+        rec[f"{what}_speedup"] = round(float(o / t), 3)
+        print(f"[ab] {what} replays: this checkout {rec[f'{what}_speedup']}x "
+              f"against the other ({smi})", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--kernel", choices=("pair", "banded"), default="pair",
+    ap.add_argument("--kernel", choices=("pair", "banded", "replay"),
+                    default="pair",
                     help="the kernel to compare (default: pair)")
     ap.add_argument("--pairs", type=int, default=1_000_000,
-                    help="read pairs of the paper-shape dataset (banded)")
+                    help="read pairs of the paper-shape dataset (banded, "
+                    "replay)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this "
@@ -183,8 +276,10 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.kernel == "pair":
         out = {"pair_hits_ab": _pair_ab(args.other, smi)}
-    else:
+    elif args.kernel == "banded":
         out = {"banded_ab": _banded_ab(args.other, args.pairs, smi)}
+    else:
+        out = {"replay_ab": _replay_ab(args.other, args.pairs, smi)}
     print(smi)
     print(json.dumps(out), flush=True)
     return 0

@@ -14,6 +14,11 @@ The features are float32: inputs are 0/1 and every sum is at most
 F = 32, so the product is exact (float32 matmuls on the card run in full
 float32 unless TF32 is enabled, and 0/1 sums <= 32 are exact in TF32
 too).
+
+In the row-blocked mode each chunk uploads once per run and is replayed
+once per row block by a plain loop (:func:`_dense_chunk_offset`);
+``lime_tpu``'s ``_dense_scan_class`` batches the replays with
+``lax.scan`` only to amortise its relay's launch cost.
 """
 
 from __future__ import annotations
@@ -21,18 +26,18 @@ from __future__ import annotations
 import torch
 
 
-def _dense_chunk(sim: torch.Tensor, ridx: torch.Tensor, gidx: torch.Tensor,
-                 cmap: torch.Tensor, rid: torch.Tensor, b_blk: int,
-                 c_blk: int, pr: int, f: int, g_pad: int) -> None:
-    """One fixed-shape chunk: scatter features, batched matmul, row
-    scatter-add into ``sim`` (in place).
+def _dense_rows(ridx: torch.Tensor, gidx: torch.Tensor, cmap: torch.Tensor,
+                b_blk: int, c_blk: int, pr: int, f: int,
+                g_pad: int) -> torch.Tensor:
+    """One fixed-shape chunk's scores: scatter features, batched matmul;
+    int32 ``(b_blk * pr, g_pad)``, one row per read lane.
 
     Triple pads carry the index one past each feature buffer; the
     buffers get one extra sink slot there, sliced off before the matmul,
     so a real out-of-range index still raises.  Pad entries have all-zero
-    phi rows, so their rid rows (the ``num_reads`` drop row) add zero.
+    phi rows, so their rows are zero.
     """
-    dev = sim.device
+    dev = ridx.device
     phi = torch.zeros(b_blk * pr * f + 1, dtype=torch.float32, device=dev)
     phi.index_add_(0, ridx, torch.ones(ridx.shape[0], device=dev))
     psi = torch.zeros(c_blk * g_pad * f + 1, dtype=torch.float32,
@@ -41,5 +46,32 @@ def _dense_chunk(sim: torch.Tensor, ridx: torch.Tensor, gidx: torch.Tensor,
     phi = phi[:-1].view(b_blk, pr, f)
     psi = psi[:-1].view(c_blk, g_pad, f)
     out = torch.bmm(phi, psi[cmap].transpose(1, 2))  # (b_blk, pr, g_pad)
-    add = out.reshape(b_blk * pr, g_pad).to(torch.int32)
+    return out.reshape(b_blk * pr, g_pad).to(torch.int32)
+
+
+def _dense_chunk(sim: torch.Tensor, ridx: torch.Tensor, gidx: torch.Tensor,
+                 cmap: torch.Tensor, rid: torch.Tensor, b_blk: int,
+                 c_blk: int, pr: int, f: int, g_pad: int) -> None:
+    """One fixed-shape chunk: scores, then one row scatter-add into
+    ``sim`` (in place).  Pad entries' rows (the ``num_reads`` drop row)
+    add zero."""
+    add = _dense_rows(ridx, gidx, cmap, b_blk, c_blk, pr, f, g_pad)
     sim.index_add_(0, rid, add.to(sim.dtype))
+
+
+def _dense_chunk_offset(stack: torch.Tensor, fi: int, ridx: torch.Tensor,
+                        gidx: torch.Tensor, cmap: torch.Tensor,
+                        rid: torch.Tensor, row_base: int, b_blk: int,
+                        c_blk: int, pr: int, f: int, g_pad: int) -> None:
+    """:func:`_dense_chunk` into plane ``fi`` of the ``(F, B, g_pad)``
+    row-block stack, whose row 0 is read ``row_base``.
+
+    Only the rows inside the block are added (most rows of a chunk fall
+    outside it when there are many blocks); selecting them waits for the
+    device.  Adding zero rows for the others instead, with no wait,
+    measured slower on an H100 (PERF.md): eight times the atomic adds.
+    """
+    add = _dense_rows(ridx, gidx, cmap, b_blk, c_blk, pr, f, g_pad)
+    local = rid.to(torch.int64) - row_base
+    sel = torch.nonzero((local >= 0) & (local < stack.shape[1])).squeeze(1)
+    stack[fi].index_add_(0, local[sel], add[sel].to(stack.dtype))

@@ -10,6 +10,11 @@ chunk the device unpacks the rows, counts pair hits
 (:func:`pair_kernels.pair_hits`), broadcasts each copy's genome column to
 its rows and scatter-adds the hits into the ``(R_pad, G_pad)`` plane.
 int8 adds wrap mod 256: the reference's unsaturated uchar counters.
+
+In the row-blocked mode the uploaded buffers stay on the device and
+every chunk is replayed once per row block, by a plain loop, into an
+``(F, B, G_pad)`` stack (:func:`pair_score_packed_offset`): ``lime_tpu``
+replays them with ``lax.scan`` only to amortise its relay's launch cost.
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ from .pair_kernels import BUCKET_CAPS, PAIR_TILE, _pair_hits_core, pair_hits
 
 __all__ = ["BUCKET_CAPS", "PAIR_TILE", "_pair_hits_core", "_unpack_bits5",
            "_unpack_rows", "_hits_dispatch", "_pair_packed_block",
-           "pair_upload", "pair_score_packed_into", "chunk_views",
+           "_pair_packed_block_offset", "pair_upload",
+           "pair_score_packed_into", "pair_score_packed_offset",
+           "chunk_views",
            "chunk_codes", "coo_scatter_into", "to_device"]
 
 
@@ -71,17 +78,14 @@ def _hits_dispatch(codes: torch.Tensor, window: int, cap: int = 255):
     return pair_hits(codes.to(torch.uint8), window, cap)
 
 
-def _pair_packed_block(sim: torch.Tensor, rows_w, bits_b, gcol, window,
-                       drop: int, row_bits: int, cap: int = 255) -> None:
-    """One packed chunk: unpack, score, one scatter-add into ``sim``.
+def _decode_chunk(rows_w, bits_b, gcol, window, row_bits: int, cap: int):
+    """One packed chunk, unpacked and scored: per row its read id, genome
+    column (int64), genome-side flag and pair hits (int32).
 
     The genome column is constant per copy, so it ships once per copy and
     broadcasts to rows via a cumsum of copy-start bits + one gather (a
     copy's first row is always read-side; pad rows carry side=1 and m=0
-    and never increment the cumsum).  Genome-side rows land in the drop
-    row ``drop // g_pad`` (= num_reads, inside R_pad), spread over its
-    columns so their zero-value adds do not all hit one address.
-    Updates ``sim`` in place.
+    and never increment the cumsum).
     """
     codes = _unpack_bits5(bits_b)
     row = _unpack_rows(rows_w, row_bits)
@@ -90,14 +94,51 @@ def _pair_packed_block(sim: torch.Tensor, rows_w, bits_b, gcol, window,
     gs = ((codes >> 4) & 1).bool()
     copy_start = ((m == 0) & ~gs).to(torch.int64)
     # pad rows before a chunk's first copy would index -1: clamp, they
-    # are genome-side and go to the drop row anyway
+    # are genome-side and every caller drops those
     cidx = (torch.cumsum(copy_start, 0) - 1).clamp_(min=0)
     gc = gcol[cidx].to(torch.int64) & 0xFFFF
+    return row, gc, gs, hits
+
+
+def _pair_packed_block(sim: torch.Tensor, rows_w, bits_b, gcol, window,
+                       drop: int, row_bits: int, cap: int = 255) -> None:
+    """One packed chunk: unpack, score, one scatter-add into ``sim``.
+
+    Genome-side rows land in the drop row ``drop // g_pad`` (= num_reads,
+    inside R_pad), spread over its columns so their zero-value adds do
+    not all hit one address.  Updates ``sim`` in place.
+    """
+    row, gc, gs, hits = _decode_chunk(rows_w, bits_b, gcol, window,
+                                      row_bits, cap)
     g_pad = sim.shape[1]
-    spread = torch.arange(codes.shape[0], device=codes.device) % g_pad
+    spread = torch.arange(row.shape[0], device=row.device) % g_pad
     flat = torch.where(gs, drop + spread, row * g_pad + gc)
     vals = torch.where(gs, 0, hits).to(sim.dtype)
     sim.view(-1).index_add_(0, flat, vals)
+
+
+def _pair_packed_block_offset(stack: torch.Tensor, fi: int, rows_w, bits_b,
+                              gcol, window, row_base: int, row_bits: int,
+                              cap: int = 255) -> None:
+    """One packed chunk into plane ``fi`` of the ``(F, B, g_pad)`` row-block
+    stack, whose row 0 is read ``row_base`` (the row-blocked mode).
+
+    Only the read-side rows inside the block with a nonzero hit count
+    are added: with many blocks most of a chunk's rows fall outside, and
+    routing them all to one sink address would serialise its atomics.
+    Selecting them waits for the device (the size of the selection); a
+    variant that instead adds 0 for every other row at cells spread over
+    the block, with no wait, measured no faster on an H100 (PERF.md):
+    the replay is bound by the host's launches either way.
+    """
+    row, gc, gs, hits = _decode_chunk(rows_w, bits_b, gcol, window,
+                                      row_bits, cap)
+    _, B, g_pad = stack.shape
+    local = row - row_base
+    sel = torch.nonzero(~gs & (local >= 0) & (local < B)
+                        & (hits != 0)).squeeze(1)
+    stack[fi].view(-1).index_add_(0, local[sel] * g_pad + gc[sel],
+                                  hits[sel].to(stack.dtype))
 
 
 def to_device(arr: np.ndarray, device: torch.device, keep: list):
@@ -148,6 +189,19 @@ def pair_score_packed_into(sim: torch.Tensor, arrays, chunks, windows,
                                                     row_bits):
         _pair_packed_block(sim, rows_w, bits_b, gcol, windows[bucket], drop,
                            row_bits, BUCKET_CAPS[bucket])
+
+
+def pair_score_packed_offset(stack: torch.Tensor, fi: int, uploaded,
+                             chunks, windows, row_bits: int,
+                             row_base: int) -> None:
+    """Replay one collection's uploaded pair chunks (``pair_upload``'s
+    buffers) into plane ``fi`` of a row-block stack at ``row_base``: one
+    pair-kernel launch per chunk, in place, on the current stream."""
+    for bucket, rows_w, bits_b, gcol in chunk_views(*uploaded, chunks,
+                                                    row_bits):
+        _pair_packed_block_offset(stack, fi, rows_w, bits_b, gcol,
+                                  windows[bucket], row_base, row_bits,
+                                  BUCKET_CAPS[bucket])
 
 
 def chunk_views(d_rows, d_bits, d_gcol, chunks, row_bits: int):

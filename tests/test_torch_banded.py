@@ -413,7 +413,7 @@ def test_kernel_ab_finds_another_checkouts_banded_build(tmp_path):
     shutil.copytree(os.path.join(root, "lime_tpu_torch", "csrc"),
                     other / "lime_tpu_torch" / "csrc")
     cb = kernel_ab.load_other(str(other), "cuda_build")
-    assert cb.__name__ == "_other_ops.cuda_build"
+    assert cb.__name__ == "_other.ops.cuda_build"
     assert cb.lib_path("banded_pairs") == str(
         other / "build" / "lime_tpu_torch" / "libbanded_pairs.so")
     assert os.path.exists(cb.source_path("banded_pairs"))

@@ -20,9 +20,10 @@ from lime_tpu_torch.constants import NUM_RANKS, SYMBOL_RANK_LUT
 from lime_tpu_torch.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch.ops import banded_kernels as bk
 from lime_tpu_torch.ops import classify_torch as ct
+from lime_tpu_torch.ops import fused_pipeline
 from lime_tpu_torch.ops import pair_kernels as pk
 from lime_tpu_torch.ops import pair_score as tps
-from lime_tpu_torch.ops.dense_score import _dense_chunk
+from lime_tpu_torch.ops.dense_score import _dense_chunk, _dense_chunk_offset
 from lime_tpu_torch.synth_big import make_big_dataset
 
 from .synth import make_dataset
@@ -202,6 +203,100 @@ def test_dense_chunk_cuda_matches_cpu(cuda, conserved):
         planes.append(sim.cpu().numpy()[:ds.num_reads])
     assert np.any(planes[0])
     assert np.array_equal(planes[1], planes[0])
+
+
+def _launch_total():
+    return sum(pk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_pair_offset_stack_cuda_matches_cpu(cuda, deep, wide):
+    """Every pair chunk of one collection into plane 1 of a row-block
+    stack at reads 300-555 of 800 (the chunks' rows straddle both edges
+    of the block): the card's stack equals the CPU's, one launch per
+    chunk."""
+    arrays, chunks, windows, row_bits = _plan(deep)[:4]
+    g_pad = host._g_pad_for(deep.num_genomes)
+    B, base = 256, 300
+    stacks = []
+    for dev in (CPU, cuda):
+        stack = torch.zeros((2, B, g_pad), dtype=torch.int32 if wide
+                            else torch.int8, device=dev)
+        keep = []
+        before = _launch_total()
+        tps.pair_score_packed_offset(
+            stack, 1, tps.pair_upload(arrays, chunks, dev, keep), chunks,
+            windows, row_bits, base)
+        stacks.append(stack.cpu().numpy())
+        assert _launch_total() == before + (len(chunks) if dev == cuda
+                                            else 0)
+    assert stacks[0][1].any() and not stacks[0][0].any()
+    assert np.array_equal(stacks[1], stacks[0])
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_dense_offset_chunk_cuda_matches_cpu(cuda, conserved, wide):
+    """Every dense chunk of one collection into plane 0 of a row-block
+    stack at reads 1,000-2,023 of 3,000."""
+    ds = conserved
+    out = _plan(ds, dense_min=4)
+    col = ds.collections[0]
+    g_pad = host._g_pad_for(ds.num_genomes)
+    chunks = host.pack_chunks(out[4], out[5], open_da(col), open_ebwt(col),
+                              ds.num_reads, ds.num_genomes, g_pad)[0]
+    assert chunks
+    B, base = 1024, 1000
+    stacks = []
+    for dev in (CPU, cuda):
+        stack = torch.zeros((2, B, g_pad), dtype=torch.int32 if wide
+                            else torch.int8, device=dev)
+        for arrs in chunks:
+            _dense_chunk_offset(stack, 0, *(torch.from_numpy(a).to(dev)
+                                            for a in arrs),
+                                base, host.B_BLK, host.C_BLK, host.PR,
+                                4 * host.K, g_pad)
+        stacks.append(stack.cpu().numpy())
+    assert stacks[0][0].any() and not stacks[0][1].any()
+    assert np.array_equal(stacks[1], stacks[0])
+
+
+@pytest.fixture(scope="module")
+def two_blocks(cuda, tmp_path_factory):
+    """16,500 read pairs: two row blocks of 16,384 reads; short genomes
+    for all three pair buckets."""
+    return make_dataset(str(tmp_path_factory.mktemp("two_blocks")),
+                        num_pairs=16_500, read_len=100,
+                        genome_lens=(500, 400), seed=11)
+
+
+@pytest.mark.parametrize("stream_budget", [None, 8 << 20],
+                         ids=["one_pass", "owner_passes"])
+def test_blocked_run_cuda_matches_cpu(cuda, two_blocks, tmp_path,
+                                      monkeypatch, stream_budget):
+    """A row-blocked run on the card (LIME_HBM_BUDGET=1; with a stream
+    budget, in owner passes) writes the CSV of the CPU run and of the
+    jax-free host reference; the pair kernel launched once per chunk per
+    row block of its pass, every bucket."""
+    ds = two_blocks
+    args = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len,
+            FUSED)
+    monkeypatch.setenv("LIME_HBM_BUDGET", "1")
+    if stream_budget:
+        monkeypatch.setenv("LIME_STREAM_BUDGET", str(stream_budget))
+    a, b, c = (str(tmp_path / f"{n}.csv") for n in ("cuda", "cpu", "ref"))
+    pk.reset_launches()
+    run_paired(ds.collections, a, *args, device=cuda)
+    launches = [pk.LAUNCHES[k] for k in ("scan16", "scan64", "band")]
+    stats = dict(fused_pipeline.LAST_RUN)
+    run_paired(ds.collections, b, *args, device="cpu")
+    reference.reference_csv(ds.collections, c, *args)
+    assert _read(a) == _read(b) == _read(c)
+    assert stats["engine"] == "blocked" and stats["blocks"] >= 2
+    assert stats["n_pass"] == (3 if stream_budget else 1)
+    assert launches == stats["launches_per_bucket"] and all(launches)
+    if not stream_budget:
+        assert launches == [n * stats["blocks"]
+                            for n in stats["chunks_per_bucket"]]
 
 
 @pytest.mark.parametrize("assign_higher", [False, True])

@@ -6,7 +6,7 @@ jax-free host reference (lime_tpu_torch/reference.py) must too.  Also
 pinned here: the port imports without jax, each copied host helper equals
 its original, and unported modes raise instead of running something else
 (the banded engine, ``pair_stream=False``, is held in
-test_torch_staged.py).
+test_torch_staged.py, the row-blocked mode in test_torch_blocked.py).
 """
 
 import dataclasses
@@ -155,7 +155,7 @@ def test_import_without_jax():
     (dict(host_frac=0.5), {}),
     (dict(host_frac=1.0), {}),
     ({}, {"LIME_HOST_FRAC": "0.3"}),
-    ({}, {"LIME_HBM_BUDGET": "1"}),
+    (dict(host_frac=1.0), {"LIME_HBM_BUDGET": "1"}),
 ])
 def test_unported_modes_raise(dataset, tmp_path, monkeypatch, kw, env):
     for k, v in env.items():

@@ -247,8 +247,56 @@ def test_kernel_ab_loads_another_checkout():
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     other = kernel_ab.load_other(root)
-    assert other is not pk and other.__name__ == "_other_ops.pair_kernels"
+    assert other is not pk and other.__name__ == "_other.ops.pair_kernels"
     codes = torch.from_numpy(pk.planner_shaped_chunk(
         np.random.default_rng(3), pk.PAIR_TILE, 64))
     assert torch.equal(other.pair_hits(codes, 64, 64),
                        pk.pair_hits(codes, 64, 64))
+
+
+def test_kernel_ab_loads_another_checkouts_replay_modules():
+    """``kernel_ab --kernel replay`` imports another checkout's
+    ``ops.pair_score`` with the package-relative imports it needs (here
+    this checkout's), which must score a chunk into a row block as this
+    one does."""
+    import os
+
+    from lime_tpu_torch import kernel_ab
+    from lime_tpu_torch.ops import pair_score
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    other = kernel_ab.load_other(root, "pair_score")
+    assert other is not pair_score
+    assert other.__name__ == "_other.ops.pair_score"
+    assert other.pair_hits is not pk.pair_hits
+    rng = np.random.default_rng(5)
+    codes = pk.planner_shaped_chunk(rng, pk.PAIR_TILE, 16)
+    n, row_bits = codes.shape[0], 20
+    rows = rng.integers(0, 300, n)
+    words = np.zeros(n // 8 * (row_bits // 4), np.uint32)
+    for j in range(8):  # pack 8 rows of row_bits per group
+        off = row_bits * j
+        a, sh = off >> 5, off & 31
+        grp = words.reshape(-1, row_bits // 4)
+        v = rows[j::8].astype(np.uint64)
+        grp[:, a] |= ((v << np.uint64(sh)) & np.uint64(0xFFFFFFFF)).astype(
+            np.uint32)
+        if sh + row_bits > 32:
+            grp[:, a + 1] |= (v >> np.uint64(32 - sh)).astype(np.uint32)
+    bits = np.zeros(n // 8 * 5, np.uint8)
+    for j in range(8):  # pack 8 codes of 5 bits per 5-byte group
+        off = 5 * j
+        a, sh = off >> 3, off & 7
+        grp = bits.reshape(-1, 5)
+        v = codes[j::8].astype(np.uint16)
+        grp[:, a] |= ((v << sh) & 255).astype(np.uint8)
+        if sh + 5 > 8:
+            grp[:, a + 1] |= (v >> (8 - sh)).astype(np.uint8)
+    args = (torch.from_numpy(words.view(np.int32)), torch.from_numpy(bits),
+            torch.zeros(4096, dtype=torch.int16), 16)
+    assert torch.equal(pair_score._unpack_rows(args[0], row_bits),
+                       torch.from_numpy(rows))
+    stacks = [torch.zeros((2, 128, 8), dtype=torch.int8) for _ in range(2)]
+    for mod, stack in zip((other, pair_score), stacks):
+        mod._pair_packed_block_offset(stack, 1, *args, 100, row_bits, 16)
+    assert stacks[1][1].any() and torch.equal(stacks[0], stacks[1])

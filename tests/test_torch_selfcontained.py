@@ -184,15 +184,21 @@ def _artifacts(cols):
     return out
 
 
-@pytest.mark.parametrize("kw", [dict(fused=True), dict(),
-                                dict(executor="host")],
-                         ids=["fused", "staged", "host"])
-def test_port_runs_without_jax_and_lime_tpu(small, tmp_path, kw):
+@pytest.mark.parametrize("kw,env", [
+    (dict(fused=True), {}), (dict(), {}), (dict(executor="host"), {}),
+    (dict(fused=True), {"LIME_HBM_BUDGET": "1",
+                        "LIME_STREAM_BUDGET": "4096"}),
+], ids=["fused", "staged", "host", "blocked"])
+def test_port_runs_without_jax_and_lime_tpu(small, tmp_path, monkeypatch,
+                                            kw, env):
     """In a process where ``jax`` and ``lime_tpu`` cannot be imported,
     the port's run_paired writes the CSV and checkpoint bytes that
-    lime_tpu's run writes."""
+    lime_tpu's run writes (``blocked``: the row-blocked mode in owner
+    passes, in both)."""
     from lime_tpu.pipeline import run_paired as jax_run_paired
 
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
     cols = small.collections
     args = (small.num_reads, small.num_genomes, small.lineage_path,
             small.read_len)
@@ -208,12 +214,16 @@ sys.modules["lime_tpu"] = None
 import torch
 torch.set_num_threads(1)
 from lime_tpu_torch import LimeConfig, run_paired
+from lime_tpu_torch.ops.fused_pipeline import LAST_RUN
 run_paired({cols!r}, {a!r}, *{args!r}, LimeConfig(**{kw!r}), device="cpu")
-print("ran")
+print("ran", LAST_RUN.get("engine"), LAST_RUN.get("n_pass"))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert out.returncode == 0 and "ran" in out.stdout, out.stderr[-3000:]
+    if env:
+        engine, n_pass = out.stdout.split()[-2:]
+        assert engine == "blocked" and int(n_pass) >= 2
     assert _read(a) == _read(b)
     assert _artifacts(cols) == want
     assert bool(want) != bool(kw.get("fused"))
