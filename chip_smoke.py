@@ -45,7 +45,15 @@ code is non-zero:
    estimate (2 owner passes): byte-identical, the pair-hit kernel
    launched once per chunk per row block of its pass in every bucket;
    B, blocks, passes, the resident stream and dense-chunk bytes and the
-   peak device memory beside ``[e2e]``'s.
+   peak device memory beside ``[e2e]``'s;
+10. host_share: the host share of the fused serving path on the same
+   dataset: ``[hybrid]`` (``host_frac=0.5``), ``[all_host]``
+   (``host_frac=1.0``, the job shop) and ``[hybrid_blocked]``
+   (``host_frac=0.5`` under ``LIME_HBM_BUDGET`` = 1 GiB): byte-identical;
+   the pair-hit kernel launched once per planned chunk (per row block in
+   ``[hybrid_blocked]``) and never in ``[all_host]``, which must offload
+   dense chunks; K3 never; the delta-COO chain and host-plane bytes and
+   the peak device memory beside ``[e2e]``'s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
@@ -61,6 +69,7 @@ sys.modules["jax"] = None
 sys.modules["lime_tpu"] = None
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -587,6 +596,21 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
             "banded_path_bound_ms": round(planner["bound_ms"], 6)}
 
 
+@contextlib.contextmanager
+def environ(env: dict):
+    """Set the variables ``env`` for the ``with`` body, then restore."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
 def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
                   e2e_peak: int) -> dict:
     """The row-blocked fused mode at the paper shape, in one pass and in
@@ -604,17 +628,9 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
             f"runs; the automatic budget would be "
             f"{max(free - fused_pipeline.MEMORY_HEADROOM, 0)} B ({card})")
     for label, env in runs.items():
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
+        with environ(env):
             launches, _ = drive(label, ds, LimeConfig(fused=True), ref_csv,
                                 card, dev, [pk, bk])
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k)
-                else:
-                    os.environ[k] = v
         st = fused_pipeline.LAST_RUN
         want = dict(zip(CAP_OF, st["launches_per_bucket"]))
         pair = {name: launches[name] for name in CAP_OF}
@@ -649,6 +665,56 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
     return out
 
 
+def phase_host_share(ds, ref_csv: str, card: str, dev: torch.device,
+                     e2e_chunks: list, e2e_peak: int) -> dict:
+    """The host share of the fused serving path at the paper shape: a
+    hybrid split in one block and row-blocked, and the all-host job
+    shop; returns each kernel's launches per run, counted from 0 just
+    before it."""
+    runs = {"hybrid": (0.5, {}), "all_host": (1.0, {}),
+            "hybrid_blocked": (0.5, {"LIME_HBM_BUDGET": str(1 << 30)})}
+    out = {name: {} for name in REPLACES}
+    for label, (frac, env) in runs.items():
+        with environ(env):
+            launches, _ = drive(label, ds,
+                                LimeConfig(fused=True, host_frac=frac),
+                                ref_csv, card, dev, [pk, bk])
+        st = fused_pipeline.LAST_RUN
+        pair = [launches[name] for name in CAP_OF]
+        planned = st["chunks_per_bucket"]
+        if label == "hybrid":
+            # once per planned chunk, in each bucket the plan has, and
+            # fewer chunks than the all-device run
+            ok = (st["engine"] == "pair" and pair == planned
+                  and 0 < sum(planned) < sum(e2e_chunks))
+        elif label == "all_host":
+            ok = (st["engine"] == "all_host" and pair == [0, 0, 0]
+                  and st["dense_chunks"] > 0)
+        else:
+            ok = (st["engine"] == "blocked" and st["blocks"] >= 2
+                  and pair == st["launches_per_bucket"] and any(pair))
+        if (not ok or launches["banded"]
+                or st["host_num"] != round(frac * 256)):
+            raise AssertionError(
+                f"[{label}] engine {st['engine']}, host share "
+                f"{st['host_num']}/256, chunks {planned} ([e2e] "
+                f"{e2e_chunks}), dense chunks {st['dense_chunks']}, blocks "
+                f"{st.get('blocks')}: launches {launches}")
+        peak = st["memory"].get("peak_bytes_in_use", 0)
+        blocked = (f"; B={st['B']} reads, {st['blocks']} blocks, launches "
+                   f"per bucket {st['launches_per_bucket']}"
+                   if st["engine"] == "blocked" else "")
+        log(f"[{label}] host share {st['host_num']}/256, engine "
+            f"{st['engine']}: pair-kernel launches {pair} (chunks {planned}"
+            f", [e2e] {e2e_chunks}), K3 0{blocked}; dense chunks "
+            f"{st['dense_chunks']}; delta-COO chains {st['chain_bytes']} B, "
+            f"host planes {st['host_plane_bytes']} B; peak device memory "
+            f"{peak} B, [e2e] {e2e_peak} B ({peak - e2e_peak:+d} B) ({card})")
+        for name in REPLACES:
+            out[name][label] = launches[name]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
@@ -669,6 +735,7 @@ def main(argv=None) -> int:
     timed("cascade", phase_cascade, dev)
     ds, ref_csv, launches = timed("e2e", phase_e2e, args.pairs, smi, dev)
     e2e_peak = fused_pipeline.LAST_RUN["memory"]["peak_bytes_in_use"]
+    e2e_chunks = list(fused_pipeline.LAST_RUN["chunks_per_bucket"])
     records = timed("kernels", phase_kernels, ds, smi, dev, launches)
     records["banded"] = timed("kernels_banded", phase_banded_kernel, ds,
                               smi, dev)
@@ -685,10 +752,13 @@ def main(argv=None) -> int:
     launches["banded"] = staged["banded"]
     blocked = timed("blocked", phase_blocked, ds, ref_csv, smi, dev,
                     e2e_peak)
+    host_share = timed("host_share", phase_host_share, ds, ref_csv, smi, dev,
+                       e2e_chunks, e2e_peak)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
-                **records[k], "blocked_path_launches": blocked[k]}
+                **records[k], "blocked_path_launches": blocked[k],
+                "host_share_path_launches": host_share[k]}
                for k in REPLACES]
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))

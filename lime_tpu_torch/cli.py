@@ -8,7 +8,8 @@ with the same arguments and options, plus ``--device``::
     lime-tpu-torch classify N RES1..RESN NUM_READS NUM_GENOMES OUT \\
         LINEAGE TAX_RANK [THREADS] --device cuda
     lime-tpu-torch run-paired 1F 1RC 2F 2RC out.csv NUM_READS NUM_GENOMES \\
-        LineageFile.csv READ_LEN [THREADS] [--fused] --device cuda
+        LineageFile.csv READ_LEN [THREADS] [--fused] [--host-frac F] \\
+        [--hbm-budget BYTES] --device cuda
 
 ``run-paired`` / ``run-single`` run the staged stages (writing the
 ``.clrs`` / ``.res`` checkpoints) unless ``--fused`` asks for the serving
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 from .config import LimeConfig
@@ -38,6 +40,7 @@ def _config_from(args) -> LimeConfig:
         fused=getattr(args, "fused", False),
         dense_threshold=getattr(args, "dense_threshold", None),
         mxu_dense_min=getattr(args, "mxu_dense_min", None),
+        host_frac=getattr(args, "host_frac", None),
     )
 
 
@@ -123,6 +126,14 @@ def main(argv=None) -> int:
         p.add_argument("--mxu-dense-min", type=int, default=None,
                        help="genome-position threshold for the dense "
                             "matmul path (default 16)")
+        p.add_argument("--host-frac", type=float, default=None,
+                       help="share of the fused path's clusters scored by "
+                            "the exact host scorer (default 0: all on the "
+                            "device; 1: all on the host)")
+        p.add_argument("--hbm-budget", type=int, default=None,
+                       help="device memory budget in bytes for the score "
+                            "stack (sets LIME_HBM_BUDGET for the run); a "
+                            "smaller one forces the row-blocked mode")
         _add_common(p, scoring=True, classify=True)
         _add_device(p)
     args = ap.parse_args(argv)
@@ -169,9 +180,18 @@ def _dispatch(args) -> int:
     cfg = _config_from(args).replace(
         alpha=args.alpha, beta=args.beta, tax_rank=args.tax_rank)
     fn = run_paired if args.cmd == "run-paired" else run_single
-    s = fn(args.collections, args.output, args.num_reads, args.num_genomes,
-           args.lineage, args.read_len, cfg, keep_results=args.keep_results,
-           device=args.device)
+    saved = os.environ.get("LIME_HBM_BUDGET")
+    if args.hbm_budget is not None:
+        os.environ["LIME_HBM_BUDGET"] = str(args.hbm_budget)
+    try:
+        s = fn(args.collections, args.output, args.num_reads,
+               args.num_genomes, args.lineage, args.read_len, cfg,
+               keep_results=args.keep_results, device=args.device)
+    finally:
+        if saved is None:
+            os.environ.pop("LIME_HBM_BUDGET", None)
+        else:
+            os.environ["LIME_HBM_BUDGET"] = saved
     print(f"C={s.classified} H={s.higher} A={s.ambiguous} "
           f"U={s.unclassified} / {s.num_reads}")
     return 0

@@ -30,7 +30,8 @@ __all__ = ["BUCKET_CAPS", "PAIR_TILE", "_pair_hits_core", "_unpack_bits5",
            "_pair_packed_block_offset", "pair_upload",
            "pair_score_packed_into", "pair_score_packed_offset",
            "chunk_views",
-           "chunk_codes", "coo_scatter_into", "to_device"]
+           "chunk_codes", "coo_scatter_into", "coo_scatter_into_stack",
+           "to_device"]
 
 
 def _unpack_bits5(bits_b: torch.Tensor) -> torch.Tensor:
@@ -231,7 +232,7 @@ def chunk_codes(arrays, chunks, row_bits: int, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
-# Delta-COO chains (the dense host rescue)
+# Delta-COO chains (host-scored planes: the dense rescue and the host share)
 # ---------------------------------------------------------------------------
 
 def _coo_scatter_block24(sim: torch.Tensor, buf: torch.Tensor,
@@ -279,3 +280,14 @@ def coo_scatter_into(sim: torch.Tensor, chain, keep: list,
                                  keep),
                        to_device(val.view(vdt), dev, keep), int(base0))
 
+
+
+def coo_scatter_into_stack(stack: torch.Tensor, chain, fi: int, keep: list,
+                           packed24: bool = False) -> None:
+    """Upload one delta-COO chain and scatter it into plane ``fi`` of a
+    row-block stack (``lime_tpu``'s ``coo_scatter_into_stack``).  The
+    chain's rows are relative to the block's base: the caller compacts its
+    host plane's row slice.  ``stack[fi]`` of the contiguous ``(F, B,
+    g_pad)`` stack is a contiguous view, so the plain scatters add into
+    the stack in place."""
+    coo_scatter_into(stack[fi], chain, keep, packed24=packed24)

@@ -18,7 +18,7 @@ CUDA kernel fuses the segment-sum and needs no position blocks, and
 whose plain version on the CPU is the XLA formulation in blocks.  The
 SPMD engines of the JAX module (``make_sharded_pipeline``,
 ``make_pair_sharded_pipeline``, ``run_sharded*``) are not ported yet
-(ROADMAP queue 1, item 11).
+(ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations

@@ -561,3 +561,79 @@ def test_banded_paths_cuda_match_host(cuda, deep, tmp_path, kw):
     run_paired(deep.collections, c, *args, cfg.replace(executor="host"))
     assert _read(a) == _read(c)
     assert launches >= (1 if cfg.fused else 4)
+
+
+# ---------------------------------------------------------------------------
+# The host share: hybrid, all-host and row-blocked hybrid runs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("frac,env", [
+    (0.5, {}),
+    (1.0, {"LIME_DENSE_OFFLOAD": "1", "LIME_DENSE_OFFLOAD_MIN": "4"}),
+    (0.5, {"LIME_HBM_BUDGET": "1"}),
+], ids=["hybrid", "all_host", "hybrid_blocked"])
+def test_host_share_cuda_matches_reference(cuda, two_blocks, tmp_path,
+                                           monkeypatch, frac, env):
+    """A host share on the card writes the jax-free host reference's
+    CSV: the hybrid's host plane scatters as a coo24 chain (one block) or
+    per row block, the all-host job shop offloads dense chunks; the pair
+    kernel launches once per planned chunk (per block, blocked), never
+    in an all-host run, and K3 never."""
+    ds = two_blocks
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = FUSED.replace(host_frac=frac)
+    args = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len, cfg)
+    a, c = str(tmp_path / "cuda.csv"), str(tmp_path / "ref.csv")
+    pk.reset_launches()
+    bk.reset_launches()
+    run_paired(ds.collections, a, *args, device=cuda)
+    launches = [pk.LAUNCHES[k] for k in ("scan16", "scan64", "band")]
+    stats = dict(fused_pipeline.LAST_RUN)
+    reference.reference_csv(ds.collections, c, *args)
+    assert _read(a) == _read(c)
+    assert bk.LAUNCHES["banded"] == 0
+    assert stats["host_num"] == round(frac * 256)
+    if "LIME_HBM_BUDGET" in env:
+        assert stats["engine"] == "blocked" and stats["blocks"] >= 2
+        assert launches == stats["launches_per_bucket"] and any(launches)
+    elif frac == 1.0:
+        assert stats["engine"] == "all_host" and launches == [0, 0, 0]
+        assert stats["dense_chunks"] > 0
+    else:
+        assert launches == stats["chunks_per_bucket"] and any(launches)
+    if frac < 1.0:
+        assert stats["chain_bytes"] > 0
+
+
+@pytest.fixture(scope="module")
+def srr_width(cuda, tmp_path_factory):
+    """tests/test_srr_width.py's 3,423-genome dataset."""
+    rng = np.random.default_rng(99)
+    lens = [int(v) for v in rng.integers(180, 260, 3423)]
+    return make_dataset(str(tmp_path_factory.mktemp("srr_width")),
+                        num_pairs=1500, read_len=60, genome_lens=lens,
+                        seed=99, mutation_rate=0.01, negative_fraction=0.1,
+                        degenerate_rate=0.001, insert_len=150)
+
+
+def test_width_cuda_matches_reference(cuda, srr_width, tmp_path,
+                                      monkeypatch):
+    """3,423 genomes on the card (g_pad 3,456, u16 genome columns): all on
+    the device, then a hybrid whose host plane (forced by a position cap
+    of 1) ships as a coo24 chain with 12-bit columns; both CSVs equal
+    the host reference's."""
+    ds = srr_width
+    monkeypatch.setattr(host, "_COO_POSITION_CAP", 1)
+    c = str(tmp_path / "ref.csv")
+    reference.reference_csv(ds.collections, c, ds.num_reads, ds.num_genomes,
+                            ds.lineage_path, ds.read_len, FUSED)
+    for frac in (0.0, 0.5):
+        a = str(tmp_path / f"cuda_{frac}.csv")
+        pk.reset_launches()
+        run_paired(ds.collections, a, ds.num_reads, ds.num_genomes,
+                   ds.lineage_path, ds.read_len,
+                   FUSED.replace(host_frac=frac), device=cuda)
+        assert _read(a) == _read(c), frac
+        assert sum(pk.LAUNCHES.values()) > 0
+        assert fused_pipeline.LAST_RUN["chain_bytes"] > 0

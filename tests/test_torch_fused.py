@@ -4,9 +4,10 @@
 lime_tpu's fused (JAX) serving run and its staged host executor; the
 jax-free host reference (lime_tpu_torch/reference.py) must too.  Also
 pinned here: the port imports without jax, each copied host helper equals
-its original, and unported modes raise instead of running something else
-(the banded engine, ``pair_stream=False``, is held in
-test_torch_staged.py, the row-blocked mode in test_torch_blocked.py).
+its original, and the host-share modes match lime_tpu's (the banded
+engine, ``pair_stream=False``, is held in test_torch_staged.py, the
+row-blocked mode in test_torch_blocked.py, the host share in full in
+test_torch_hybrid.py).
 """
 
 import dataclasses
@@ -133,13 +134,25 @@ def test_reference_matches_host(dataset, tmp_path):
     assert _read(a) == _read(c)
 
 
-def test_cli_run_paired_cpu(dataset, tmp_path):
+@pytest.mark.parametrize("extra", [
+    [], ["--fused", "--host-frac", "1.0"], ["--fused", "--hbm-budget", "1"]],
+    ids=["staged", "all-host", "blocked"])
+def test_cli_run_paired_cpu(dataset, tmp_path, monkeypatch, extra):
+    """``--host-frac`` and ``--hbm-budget`` reach the fused engine, as in
+    lime_tpu's CLI; the budget does not outlive the call."""
+    monkeypatch.delenv("LIME_HBM_BUDGET", raising=False)
     a, c = str(tmp_path / "cli.csv"), str(tmp_path / "host.csv")
     rc = torch_cli.main(["run-paired", *dataset.collections, a,
-                         *map(str, _args(dataset)), "--device", "cpu"])
+                         *map(str, _args(dataset)), *extra, "--device",
+                         "cpu"])
+    engine = tfp.LAST_RUN.get("engine")
     jax_run_paired(dataset.collections, c, *_args(dataset),
                    jax_config(HOST))
     assert rc == 0 and _read(a) == _read(c)
+    if extra:
+        assert engine == ("all_host" if "--host-frac" in extra
+                          else "blocked")
+    assert "LIME_HBM_BUDGET" not in os.environ
 
 
 def test_import_without_jax():
@@ -157,12 +170,19 @@ def test_import_without_jax():
     ({}, {"LIME_HOST_FRAC": "0.3"}),
     (dict(host_frac=1.0), {"LIME_HBM_BUDGET": "1"}),
 ])
-def test_unported_modes_raise(dataset, tmp_path, monkeypatch, kw, env):
+def test_host_share_modes_match_jax(dataset, tmp_path, monkeypatch, kw, env):
+    """The hybrid and all-host splits, ``LIME_HOST_FRAC`` overriding an
+    unset ``host_frac``, and an all-host row-blocked run."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_paired(dataset.collections, str(tmp_path / "x.csv"),
-                   *_args(dataset), FUSED.replace(**kw), device="cpu")
+    a, b = str(tmp_path / "torch.csv"), str(tmp_path / "jax.csv")
+    run_paired(dataset.collections, a, *_args(dataset), FUSED.replace(**kw),
+               device="cpu")
+    host_num = tfp.LAST_RUN["host_num"]
+    jax_run_paired(dataset.collections, b, *_args(dataset),
+                   jax_config(FUSED.replace(**kw)))
+    assert _read(a) == _read(b)
+    assert host_num == {0.5: 128, 1.0: 256}.get(kw.get("host_frac"), 77)
 
 
 def test_cuda_without_card_raises(dataset, tmp_path):
@@ -243,7 +263,7 @@ def test_host_pack_chunks_matches(conserved):
     assert got[0] and _same(got, dense_score.pack_chunks(*args))
 
 
-@pytest.mark.parametrize("name", ["_rescue_sparse", "_rescue"])
+@pytest.mark.parametrize("name", ["_rescue_sparse"])
 def test_host_rescue_matches(dataset, deep, name):
     for ds in (dataset, deep):
         out = _plan(ds)

@@ -188,13 +188,14 @@ def _artifacts(cols):
     (dict(fused=True), {}), (dict(), {}), (dict(executor="host"), {}),
     (dict(fused=True), {"LIME_HBM_BUDGET": "1",
                         "LIME_STREAM_BUDGET": "4096"}),
-], ids=["fused", "staged", "host", "blocked"])
+    (dict(fused=True, host_frac=1.0), {}),
+], ids=["fused", "staged", "host", "blocked", "all_host"])
 def test_port_runs_without_jax_and_lime_tpu(small, tmp_path, monkeypatch,
                                             kw, env):
     """In a process where ``jax`` and ``lime_tpu`` cannot be imported,
     the port's run_paired writes the CSV and checkpoint bytes that
     lime_tpu's run writes (``blocked``: the row-blocked mode in owner
-    passes, in both)."""
+    passes, in both; ``all_host``: the job shop's host workers)."""
     from lime_tpu.pipeline import run_paired as jax_run_paired
 
     for k, v in env.items():
