@@ -53,7 +53,22 @@ code is non-zero:
    the pair-hit kernel launched once per planned chunk (per row block in
    ``[hybrid_blocked]``) and never in ``[all_host]``, which must offload
    dense chunks; K3 never; the delta-COO chain and host-plane bytes and
-   the peak device memory beside ``[e2e]``'s.
+   the peak device memory beside ``[e2e]``'s;
+11. index: the device index builder at the paper shape: the 1F
+   collection's sequences (replayed from the dataset's seed), built by
+   ``index.build_index(engine="tpu", device="cuda")``, byte-identical to
+   the ``.ebwt``/``.lcp``/``.da`` the native SA-IS wrote for ``[e2e]``;
+   positions, doubling rounds, the phase times (setup, doubling, LCP
+   descent, extraction with the download), peak device memory, the
+   host's available RAM, and the native SA-IS build of the same
+   collection timed in the same run;
+12. preprocess: FASTA to CSV with the port alone: the reads and genomes
+   of a smaller dataset (``--preprocess-pairs``, default 50,000) written
+   as FASTA, ``lime-tpu-torch preprocess`` on them, its four collections
+   byte-identical to ``synth_big.paper_dataset``'s (built from arrays,
+   no FASTA), then the fused ``run_paired`` on them: CSV byte-identical
+   to ``executor="host"``'s on the same collections, the pair-hit kernel
+   launched.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
@@ -70,8 +85,11 @@ sys.modules["lime_tpu"] = None
 
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
+import dataclasses  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -80,9 +98,13 @@ import torch  # noqa: E402
 
 from lime_tpu_torch import LimeConfig, native, reference  # noqa: E402
 from lime_tpu_torch import run_paired  # noqa: E402
+from lime_tpu_torch import cli  # noqa: E402
 from lime_tpu_torch import pipeline as staged_pipeline  # noqa: E402
 from lime_tpu_torch.formats.arrays import (  # noqa: E402
-    open_da, open_ebwt, open_lcp)
+    open_da, open_ebwt, open_lcp, read_docs)
+from lime_tpu_torch.formats.fasta import write_fasta  # noqa: E402
+from lime_tpu_torch.index import build_index  # noqa: E402
+from lime_tpu_torch.index import torch_builder  # noqa: E402
 from lime_tpu_torch.host import PACK_EMIT_BIT, PACK_M_BIT  # noqa: E402
 from lime_tpu_torch.ops import banded_kernels as bk  # noqa: E402
 from lime_tpu_torch.ops import cuda_build  # noqa: E402
@@ -94,7 +116,7 @@ from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
 from lime_tpu_torch.ops.fused_pass import staged_stream  # noqa: E402
 from lime_tpu_torch.synth_big import (  # noqa: E402
     PAPER_GENOME_LEN, PAPER_GENOMES, PAPER_READ_LEN, compute_truth,
-    paper_dataset)
+    paper_1f_sequences, paper_dataset, paper_sequences)
 from lime_tpu_torch.utils.timing import event_ms, graph_ms  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -715,10 +737,144 @@ def phase_host_share(ds, ref_csv: str, card: str, dev: torch.device,
     return out
 
 
+def host_ram(positions: int) -> str:
+    """The host RAM the device builder's guard reads (free pages, as
+    ``index.builder._check_build_memory`` reads them) beside what it needs
+    for ``positions`` (260 B each, within 90% of the free pages), and
+    ``MemAvailable`` (free pages plus reclaimable cache)."""
+    free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    return (f"host RAM free {free} B (the build guard needs "
+            f"{positions * 260 / 0.9:.0f} B of it), MemAvailable {avail} B")
+
+
+def _same_index(got, want) -> list:
+    """Names of the arrays of ``got`` that differ from ``want`` in dtype
+    or bytes, in the order ebwt, lcp, da."""
+    return [name for name, a, b in zip(("ebwt", "lcp", "da"), got, want)
+            if a.dtype != b.dtype or not np.array_equal(a, b)]
+
+
+def phase_index(ds, card: str, dev: torch.device) -> None:
+    """The device builder on the 1F collection of ``[e2e]``'s dataset,
+    against the native SA-IS's files and its build timed here."""
+    fasta = ds.collections[0]
+    t0 = time.perf_counter()
+    seqs = paper_1f_sequences(ds.num_reads)
+    n = sum(len(s) + 1 for s in seqs)
+    log(f"[index] 1F collection replayed: {len(seqs)} sequences, {n} "
+        f"positions in {time.perf_counter() - t0:.1f} s; {host_ram(n)}")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = build_index(seqs, engine="tpu", device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    st = torch_builder.LAST_RUN
+    bad = _same_index(got, (open_ebwt(fasta), open_lcp(fasta),
+                            open_da(fasta)))
+    if st["positions"] != n or bad:
+        raise AssertionError(f"[index] device build differs from the SA-IS "
+                             f"files in {bad} ({st['positions']} positions)")
+    phases = " ".join(f"{k}={v:.3f}s" for k, v in st["phases"].items())
+    log(f"[index] build_index(engine='tpu', device='{dev}'): {n} positions, "
+        f"{st['rounds']} doubling rounds, max LCP {int(got[1].max())}: "
+        f"{wall:.3f} s wall ({phases}); peak device memory {peak} B; "
+        f"ebwt, lcp, da byte-identical to {os.path.basename(fasta)}'s "
+        f"SA-IS files ({card})")
+    del got
+    concat = np.frombuffer(b"".join(seqs), np.uint8)
+    lens = np.array([len(s) for s in seqs], np.int64)
+    del seqs
+    t0 = time.perf_counter()
+    sais = native.build_index_native_concat(concat, lens)
+    t_sais = time.perf_counter() - t0
+    bad = _same_index(sais, (open_ebwt(fasta), open_lcp(fasta),
+                             open_da(fasta)))
+    if bad:
+        raise AssertionError(f"[index] SA-IS rebuild differs in {bad}")
+    log(f"[index] native SA-IS (host yardstick) on the same collection: "
+        f"{t_sais:.3f} s, {t_sais / wall:.2f}x the device build's wall "
+        f"({card})")
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def phase_preprocess(pairs: int, card: str, dev: torch.device) -> dict:
+    """``lime-tpu-torch preprocess`` from FASTA against
+    ``synth_big.paper_dataset``'s arrays, then the fused run on its
+    collections against the host executor's CSV; returns each kernel's
+    launches in the fused run, counted from 0 just before it."""
+    root = os.path.join(ROOT, "build", f"preprocess_{pairs}")
+    shutil.rmtree(root, ignore_errors=True)
+    fasta_dir, out_dir = os.path.join(root, "fasta"), os.path.join(root,
+                                                                   "idx")
+    os.makedirs(fasta_dir)
+    t0 = time.perf_counter()
+    reads1, reads2, genomes = paper_sequences(pairs)
+    files = []
+    for name, rows, title in (("reads_1", reads1, "r{}/1"),
+                              ("reads_2", reads2, "r{}/2"),
+                              ("refs", genomes, "G{:04d}")):
+        path = os.path.join(fasta_dir, f"{name}.fasta")
+        write_fasta(path, [title.format(i) for i in range(len(rows))],
+                    [r.tobytes() for r in rows])
+        files.append(path)
+    del reads1, reads2, genomes
+    t_fasta = time.perf_counter() - t0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["preprocess", files[0], files[2], "--reads2",
+                       files[1], "--out-dir", out_dir])
+    t_pre = time.perf_counter() - t0
+    cols = printed.getvalue().split()
+    want_cols = [os.path.join(out_dir, f"col_{t}.fasta")
+                 for t in ("1F", "1RC", "2F", "2RC")]
+    if rc != 0 or cols != want_cols:
+        raise AssertionError(f"[preprocess] exit {rc}, printed {cols}")
+    t0 = time.perf_counter()
+    ref, _ = paper_dataset(os.path.join(ROOT, "build"), pairs)
+    t_ref = time.perf_counter() - t0
+    for col, ref_col in zip(cols, ref.collections):
+        for ext in (".ebwt", ".lcp", ".da"):
+            with open(col + ext, "rb") as a, open(ref_col + ext, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"[preprocess] {col}{ext} differs "
+                                         f"from {ref_col}{ext}")
+        if read_docs(col) != pairs + PAPER_GENOMES:
+            raise AssertionError(f"[preprocess] {col}.docs holds "
+                                 f"{read_docs(col)}")
+    log(f"[preprocess] {pairs} pairs x {PAPER_GENOMES} genomes: FASTA "
+        f"written in {t_fasta:.1f} s; `lime-tpu-torch preprocess` in "
+        f"{t_pre:.1f} s; its four collections' ebwt, lcp and da "
+        f"byte-identical to synth_big's (built from arrays in "
+        f"{t_ref:.1f} s), .docs {pairs + PAPER_GENOMES}")
+    ds = dataclasses.replace(ref, root=out_dir, collections=cols)
+    ref_csv = os.path.join(out_dir, "host.csv")
+    t0 = time.perf_counter()
+    run_paired(cols, ref_csv, ds.num_reads, ds.num_genomes, ds.lineage_path,
+               ds.read_len, LimeConfig(executor="host"), keep_results=False)
+    log(f"[preprocess] executor='host' CSV in {time.perf_counter() - t0:.1f}"
+        " s")
+    launches, _ = drive("preprocess", ds, LimeConfig(fused=True), ref_csv,
+                        card, dev, [pk, bk])
+    if dev.type == "cuda" and not sum(launches[k] for k in CAP_OF):
+        raise AssertionError(f"[preprocess] no pair-kernel launch: "
+                             f"{launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
                     help="read pairs of the end-to-end dataset")
+    ap.add_argument("--preprocess-pairs", type=int, default=50_000,
+                    help="read pairs of the [preprocess] phase's dataset")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     times = {}
@@ -754,11 +910,15 @@ def main(argv=None) -> int:
                     e2e_peak)
     host_share = timed("host_share", phase_host_share, ds, ref_csv, smi, dev,
                        e2e_chunks, e2e_peak)
+    timed("index", phase_index, ds, smi, dev)
+    preprocess = timed("preprocess", phase_preprocess, args.preprocess_pairs,
+                       smi, dev)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
                 **records[k], "blocked_path_launches": blocked[k],
-                "host_share_path_launches": host_share[k]}
+                "host_share_path_launches": host_share[k],
+                "preprocess_path_launches": preprocess[k]}
                for k in REPLACES]
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))

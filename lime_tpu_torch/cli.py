@@ -14,6 +14,14 @@ with the same arguments and options, plus ``--device``::
 ``run-paired`` / ``run-single`` run the staged stages (writing the
 ``.clrs`` / ``.res`` checkpoints) unless ``--fused`` asks for the serving
 path; ``--executor host`` runs the host stages (native C++ and numpy).
+
+The index surfaces run on the host and take no ``--device``::
+
+    lime-tpu-torch preprocess READS1 GENOMES [--reads2 READS2] \\
+        [--out-dir DIR] [--trlcp K]
+    lime-tpu-torch gesa-convert FASTA NUM_SEQS
+    lime-tpu-torch create-docs FASTA NUM_SEQS
+    lime-tpu-torch filter-fasta TITLES SRC DST
 """
 
 from __future__ import annotations
@@ -136,11 +144,62 @@ def main(argv=None) -> int:
                             "smaller one forces the row-blocked mode")
         _add_common(p, scoring=True, classify=True)
         _add_device(p)
+
+    p = sub.add_parser("preprocess",
+                       help="build the collection indexes from FASTA")
+    p.add_argument("reads1")
+    p.add_argument("genomes")
+    p.add_argument("--reads2", default=None,
+                   help="mate file (paired-end; omit for single-end)")
+    p.add_argument("--out-dir", default=".")
+    p.add_argument("--trlcp", type=int, default=None,
+                   help="truncate stored LCP values (safe if >= alpha)")
+
+    p = sub.add_parser("gesa-convert", help="split .gesa into .ebwt/.lcp/.da")
+    p.add_argument("fasta")
+    p.add_argument("num_seqs", type=int)
+
+    p = sub.add_parser("create-docs", help="write <fasta>.docs")
+    p.add_argument("fasta")
+    p.add_argument("num_seqs", type=int)
+
+    p = sub.add_parser("filter-fasta",
+                       help="order-preserving filter by a list of titles")
+    p.add_argument("titles")
+    p.add_argument("src")
+    p.add_argument("dst")
     args = ap.parse_args(argv)
     return _dispatch(args)
 
 
 def _dispatch(args) -> int:
+    # the host-only index surfaces, with lime_tpu's output
+    if args.cmd == "preprocess":
+        from .preprocessing import preprocess
+        paths = preprocess(args.reads1, args.reads2, args.genomes,
+                           args.out_dir, max_lcp=args.trlcp)
+        for pth in paths:
+            print(pth)
+        return 0
+
+    if args.cmd == "gesa-convert":
+        from .formats.gesa import convert_gesa
+        n = convert_gesa(args.fasta, args.num_seqs)
+        print(f"The total number of elements is {n}")
+        return 0
+
+    if args.cmd == "create-docs":
+        from .formats.arrays import write_docs
+        write_docs(args.fasta, args.num_seqs)
+        print(f"file docs: {args.fasta}.docs.")
+        return 0
+
+    if args.cmd == "filter-fasta":
+        from .utils.filter_fasta import filter_fasta_by_titles
+        n = filter_fasta_by_titles(args.titles, args.src, args.dst)
+        print(f"kept {n} sequences")
+        return 0
+
     from .pipeline import (classify, cluster_bwt, cluster_lcp, run_paired,
                            run_single)
 

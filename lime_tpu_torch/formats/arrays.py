@@ -13,6 +13,7 @@ reference binaries:
 - ``<prefix>.out`` — aux metadata handshake between stages 1 and 2:
   u32 num_reads, u32 num_genomes, u32 alpha, u64 max_len, u64 n_clusters
   (src/ClusterLCP.cpp:304-308)
+- ``<fasta>.docs`` — u64 sequence count (reference create_docs.cpp:32)
 """
 
 from __future__ import annotations
@@ -114,3 +115,12 @@ def read_clusters(path: str) -> Tuple[np.ndarray, np.ndarray]:
     rec = np.fromfile(path, dtype=DT_CLUSTER)
     return rec["p_start"].astype(np.int64), rec["len"].astype(np.int64)
 
+
+def write_docs(fasta_path: str, num_seqs: int) -> None:
+    with open(fasta_path + ".docs", "wb") as f:
+        f.write(struct.pack("<Q", num_seqs))
+
+
+def read_docs(fasta_path: str) -> int:
+    with open(fasta_path + ".docs", "rb") as f:
+        return struct.unpack("<Q", f.read(8))[0]

@@ -2,7 +2,8 @@
 
 Copy of ``lime_tpu/native/__init__.py``'s loader and of the wrappers the
 port calls, over a byte-identical copy of ``csrc/lime_native.cpp``: the
-index builder, the cluster and pair-stream planners, the exact SIMD
+index builder (in RAM, and the blockwise build, merge and Kasai pass of
+``index/external.py``), the cluster and pair-stream planners, the exact SIMD
 scorer, the delta-COO compactor and the CSV formatter.
 
 The library is built with g++ at first use into
@@ -140,6 +141,22 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ]
+        lib.lime_build_index_block.restype = ctypes.c_int64
+        lib.lime_build_index_block.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.lime_merge_blocks.restype = ctypes.c_int64
+        lib.lime_merge_blocks.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ]
+        lib.lime_kasai_files.restype = ctypes.c_int64
+        lib.lime_kasai_files.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_int64,
+        ]
         lib.lime_coo_compact.restype = ctypes.c_int64
         lib.lime_coo_compact.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -158,6 +175,14 @@ def _load() -> ctypes.CDLL:
         ]
         _lib = lib
         return _lib
+
+
+def build_index_native(seqs: Sequence[bytes]
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(ebwt, lcp, da) for the merged collection — C++ SA-IS path."""
+    concat = np.frombuffer(b"".join(seqs), dtype=np.uint8)
+    lens = np.array([len(s) for s in seqs], dtype=np.int64)
+    return build_index_native_concat(concat, lens)
 
 
 def build_index_native_concat(concat: np.ndarray, lens: np.ndarray

@@ -21,10 +21,10 @@ import torch
 
 from ..config import LimeConfig
 from ..constants import SYMBOL_RANK_LUT
+from ..device import resolve_device
 from ..host import (_bad_cluster_mask, _g_pad_for, _rescue_sparse,
                     pack_stream)
 from .banded_kernels import banded_sim_into
-from .fused_pipeline import resolve_device
 from .pair_score import to_device
 
 

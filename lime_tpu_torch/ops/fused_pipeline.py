@@ -68,6 +68,7 @@ import torch
 
 from .. import host, native
 from ..config import LimeConfig
+from ..device import resolve_device
 from ..constants import IUPAC_WATERFALL_PAIRS, SYMBOL_RANK_LUT
 from ..formats.arrays import open_da, open_ebwt, open_lcp
 from ..formats.lineage import Lineage
@@ -106,21 +107,6 @@ LAST_RUN: dict = {}
 _MAX_DROW24, _MAX_DROW = 15, 255
 
 _warmed_paths: set = set()
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card raises
-    (there is no silent CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but "
-                               "torch.cuda.is_available() is False")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 def _host_split_for(config: LimeConfig) -> int:

@@ -28,6 +28,7 @@ import numpy as np
 from . import native
 from .config import DEFAULT_CONFIG, LimeConfig
 from .constants import IUPAC_WATERFALL_PAIRS, MAX_CLUSTER_LEN, SYMBOL_RANK_LUT
+from .device import resolve_device
 from .formats.arrays import (AuxMetadata, aux_path_for, clusters_path_for,
                              open_da, open_ebwt, open_lcp, read_aux,
                              read_clusters, write_aux, write_clusters)
@@ -40,7 +41,7 @@ from .ops.classify_ops import classify_reads
 from .ops.classify_torch import classify_reads_torch
 from .ops.cluster_scan import cluster_metadata
 from .ops.fused_pass import score_clusters_tpu
-from .ops.fused_pipeline import resolve_device, run_fused
+from .ops.fused_pipeline import run_fused
 from .ops.scoring import normalize_scores
 from .utils import timing
 from .utils.timing import PhaseTimer

@@ -34,6 +34,11 @@ _COMP = np.zeros(4, np.uint8)
 _COMP[[0, 1, 2, 3]] = [3, 2, 1, 0]  # A<->T, C<->G in 2-bit code
 _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
 
+#: the generator's defaults, shared by :func:`make_big_dataset`,
+#: :func:`compute_truth` and :func:`paper_1f_sequences`
+SEED, INSERT_LEN, MUTATION_RATE, NEGATIVE_FRACTION = 17, 250, 0.01, 0.05
+CONSERVED_FRAC, GROUP_SIZE, CHUNK = 0.1, 64, 1 << 16
+
 
 @dataclasses.dataclass
 class BigDataset:
@@ -103,11 +108,12 @@ def _synth_sequences(rng, num_pairs, num_genomes, genome_len, read_len,
 
 def compute_truth(root: str, num_pairs: int, num_genomes: int,
                   genome_len: int, read_len: int = 100,
-                  insert_len: int = 250, seed: int = 17,
-                  mutation_rate: float = 0.01,
-                  negative_fraction: float = 0.05,
-                  conserved_frac: float = 0.1, group_size: int = 64,
-                  chunk: int = 1 << 16) -> np.ndarray:
+                  insert_len: int = INSERT_LEN, seed: int = SEED,
+                  mutation_rate: float = MUTATION_RATE,
+                  negative_fraction: float = NEGATIVE_FRACTION,
+                  conserved_frac: float = CONSERVED_FRAC,
+                  group_size: int = GROUP_SIZE,
+                  chunk: int = CHUNK) -> np.ndarray:
     """Ground-truth origins for a dataset, loading or replaying.
 
     Datasets generated before truth.npy existed are recovered by
@@ -129,12 +135,12 @@ def compute_truth(root: str, num_pairs: int, num_genomes: int,
 
 def make_big_dataset(root: str, num_pairs: int, num_genomes: int,
                      genome_len: int, read_len: int = 100,
-                     insert_len: int = 250, seed: int = 17,
-                     mutation_rate: float = 0.01,
-                     negative_fraction: float = 0.05,
-                     conserved_frac: float = 0.1,
-                     group_size: int = 64,
-                     chunk: int = 1 << 16) -> BigDataset:
+                     insert_len: int = INSERT_LEN, seed: int = SEED,
+                     mutation_rate: float = MUTATION_RATE,
+                     negative_fraction: float = NEGATIVE_FRACTION,
+                     conserved_frac: float = CONSERVED_FRAC,
+                     group_size: int = GROUP_SIZE,
+                     chunk: int = CHUNK) -> BigDataset:
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
 
@@ -183,7 +189,7 @@ PAPER_GENOMES, PAPER_GENOME_LEN, PAPER_READ_LEN = 930, 8000, 100
 
 
 def paper_dataset(build_dir: str, pairs: int = 1_000_000):
-    """The paper-shape dataset of ``pairs`` read pairs (seed 17) under
+    """The paper-shape dataset of ``pairs`` read pairs (:data:`SEED`) under
     ``build_dir/paper_data`` (``paper_data_<pairs>`` for another size),
     made once and reused while its stamp file exists.  Returns
     ``(BigDataset, built)``."""
@@ -194,7 +200,7 @@ def paper_dataset(build_dir: str, pairs: int = 1_000_000):
     built = not os.path.exists(stamp)
     if built:
         make_big_dataset(root, num_pairs=pairs, num_genomes=PAPER_GENOMES,
-                         genome_len=PAPER_GENOME_LEN, seed=17)
+                         genome_len=PAPER_GENOME_LEN)
         with open(stamp, "w") as f:
             f.write("ok")
     return BigDataset(
@@ -203,3 +209,24 @@ def paper_dataset(build_dir: str, pairs: int = 1_000_000):
         lineage_path=os.path.join(root, "LineageFile.csv"),
         num_reads=pairs, num_genomes=PAPER_GENOMES,
         read_len=PAPER_READ_LEN, positions_per_collection=0), built
+
+
+def paper_sequences(pairs: int):
+    """The mate-1 reads, mate-2 reads and genomes of
+    ``paper_dataset(build_dir, pairs)`` as ASCII uint8 arrays ((pairs,
+    100), (pairs, 100), (930, 8000)), replaying ``make_big_dataset``'s rng
+    draws at its defaults (as :func:`compute_truth` does)."""
+    flat, reads1, reads2, _ = _synth_sequences(
+        np.random.default_rng(SEED), pairs, PAPER_GENOMES, PAPER_GENOME_LEN,
+        PAPER_READ_LEN, INSERT_LEN, MUTATION_RATE, NEGATIVE_FRACTION,
+        CONSERVED_FRAC, GROUP_SIZE, CHUNK)
+    return (_BASE[reads1], _BASE[reads2],
+            _BASE[flat].reshape(PAPER_GENOMES, PAPER_GENOME_LEN))
+
+
+def paper_1f_sequences(pairs: int) -> List[bytes]:
+    """The 1F collection of ``paper_dataset(build_dir, pairs)`` as the
+    sequence list an index builder takes: the mate-1 reads, then the
+    genomes."""
+    reads1, _, genomes = paper_sequences(pairs)
+    return [r.tobytes() for r in reads1] + [g.tobytes() for g in genomes]

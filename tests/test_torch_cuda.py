@@ -637,3 +637,58 @@ def test_width_cuda_matches_reference(cuda, srr_width, tmp_path,
         assert _read(a) == _read(c), frac
         assert sum(pk.LAUNCHES.values()) > 0
         assert fused_pipeline.LAST_RUN["chain_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Index construction on the card
+# ---------------------------------------------------------------------------
+
+def test_index_builder_cuda_matches_numpy(cuda):
+    """The device builder on the card: a random 200,010-position
+    collection (990 reads sampled from 20 genomes of 5,000 bases, then
+    the genomes) equals the numpy builder byte for byte."""
+    from lime_tpu_torch.index import build_index
+    from lime_tpu_torch.index import torch_builder
+
+    rng = np.random.default_rng(21)
+    base = np.frombuffer(b"ACGT", np.uint8)
+    genomes = [base[rng.integers(0, 4, 5000)].tobytes() for _ in range(20)]
+    starts = rng.integers(0, 4900, 990)
+    reads = [genomes[i % 20][p:p + 100] for i, p in enumerate(starts)]
+    seqs = reads + genomes
+    got = build_index(seqs, engine="tpu", device=cuda)
+    assert torch_builder.LAST_RUN["positions"] == 200_010
+    for a, b in zip(got, build_index(seqs, engine="numpy"), strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def test_preprocess_fused_cuda_matches_host(cuda, deep, tmp_path):
+    """FASTA to CSV with the port alone: ``lime-tpu-torch preprocess``,
+    then the fused run on the card, byte-identical to the host executor's
+    CSV on the same collections."""
+    from lime_tpu_torch.cli import main
+    from lime_tpu_torch.formats.fasta import write_fasta
+
+    files = [str(tmp_path / f) for f in ("r1.fasta", "r2.fasta", "g.fasta")]
+    write_fasta(files[0], [f"r{i}/1" for i in range(deep.num_reads)],
+                deep.reads1)
+    write_fasta(files[1], [f"r{i}/2" for i in range(deep.num_reads)],
+                deep.reads2)
+    write_fasta(files[2], [f"G{j}" for j in range(deep.num_genomes)],
+                deep.genomes)
+    out_dir = str(tmp_path / "idx")
+    assert main(["preprocess", files[0], files[2], "--reads2", files[1],
+                 "--out-dir", out_dir]) == 0
+    cols = [f"{out_dir}/col_{t}.fasta" for t in ("1F", "1RC", "2F", "2RC")]
+    for col, want in zip(cols, deep.collections):
+        for ext in (".ebwt", ".lcp", ".da"):
+            assert _read(col + ext) == _read(want + ext), col + ext
+    args = (deep.num_reads, deep.num_genomes, deep.lineage_path,
+            deep.read_len)
+    a, c = str(tmp_path / "cuda.csv"), str(tmp_path / "host.csv")
+    run_paired(cols, c, *args, LimeConfig(executor="host"))
+    pk.reset_launches()
+    run_paired(cols, a, *args, FUSED, device=cuda)
+    assert _read(a) == _read(c)
+    assert sum(pk.LAUNCHES.values()) > 0

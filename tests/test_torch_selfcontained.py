@@ -76,7 +76,12 @@ def _port_sources():
 
 def test_port_imports_nothing_of_jax_lime_tpu_or_tests():
     bad = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    scanned = {os.path.relpath(p, PORT) for p in sources}
+    assert {"preprocessing.py", "index/builder.py", "index/external.py",
+            "index/torch_builder.py", "formats/fasta.py", "formats/gesa.py",
+            "utils/filter_fasta.py"} <= scanned
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
@@ -228,3 +233,48 @@ print("ran", LAST_RUN.get("engine"), LAST_RUN.get("n_pass"))
     assert _read(a) == _read(b)
     assert _artifacts(cols) == want
     assert bool(want) != bool(kw.get("fused"))
+
+
+def test_port_builds_index_without_jax_and_lime_tpu(small, tmp_path,
+                                                    capsys):
+    """In a process where ``jax`` and ``lime_tpu`` cannot be imported,
+    the port's ``preprocess`` and its device builder (on the CPU) write
+    the bytes of lime_tpu's ``preprocess``."""
+    from lime_tpu.cli import main as jax_main
+    from lime_tpu_torch.formats.fasta import write_fasta
+
+    files = [str(tmp_path / f) for f in ("r1.fasta", "r2.fasta", "g.fasta")]
+    write_fasta(files[0], [f"r{i}" for i in range(small.num_reads)],
+                small.reads1)
+    write_fasta(files[1], [f"r{i}" for i in range(small.num_reads)],
+                small.reads2)
+    write_fasta(files[2], [f"G{j}" for j in range(small.num_genomes)],
+                small.genomes)
+    args = [files[0], files[2], "--reads2", files[1], "--out-dir"]
+    assert jax_main(["preprocess", *args, str(tmp_path / "jax")]) == 0
+    want = capsys.readouterr().out.split()
+    out_dir, device_col = str(tmp_path / "torch"), str(tmp_path / "dev.fasta")
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.modules["lime_tpu"] = None
+from lime_tpu_torch.cli import main
+from lime_tpu_torch.formats.arrays import write_index_arrays
+from lime_tpu_torch.formats.fasta import read_fasta
+from lime_tpu_torch.index import build_index
+assert main(["preprocess", *{args!r}, {out_dir!r}]) == 0
+seqs = read_fasta({out_dir!r} + "/col_1F.fasta")[1]
+write_index_arrays({device_col!r},
+                   *build_index(seqs, engine="tpu", device="cpu"))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = out.stdout.split()
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want] and len(got) == 4
+    for a, b in zip(got, want):
+        for ext in ("", ".ebwt", ".lcp", ".da", ".docs"):
+            assert _read(a + ext) == _read(b + ext), a + ext
+    for ext in (".ebwt", ".lcp", ".da"):
+        assert _read(device_col + ext) == _read(want[0] + ext), ext
