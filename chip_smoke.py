@@ -68,11 +68,28 @@ code is non-zero:
    byte-identical to ``synth_big.paper_dataset``'s (built from arrays,
    no FASTA), then the fused ``run_paired`` on them: CSV byte-identical
    to ``executor="host"``'s on the same collections, the pair-hit kernel
-   launched.
+   launched;
+13. sharded: the SPMD engines at world size 1 on NCCL (a one-rank
+   process group on ``tcp://127.0.0.1``), at the paper shape:
+   ``run_sharded`` (banded engine, ``dense_threshold=0``: K3 on every
+   collection, genome-dense clusters on the matmul) and
+   ``run_sharded_pairs``, ``device="cuda"``: byte-identical to the host
+   reference, K3 launched once per collection by the banded engine and
+   the pair-hit kernel once per planned chunk by the pair engine; walls,
+   spans and peak device memory;
+14. sharded_ranks: several ranks on the one card, gloo between them
+   (NCCL refuses two ranks on one device), every rank on ``cuda:0``: the
+   dry run (``lime_tpu_torch.parallel.dryrun``) in 4 ranks as a 2x2 mesh
+   (both engines, on its 100,000-pair dataset with planted >255-row runs,
+   byte-identical to the host reference and to the forced row-blocked
+   fused run), then the pair engine alone in 3 ranks as a 1x3 mesh (dp =
+   3: the chunk exchange); each rank's kernel launches come back, every
+   rank must launch, and a rank that fails or outlives its timeout fails
+   the phase.  gloo takes the CUDA tensors directly (torch 2.11).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
-imported.
+imported, here or in the spawned ranks.
 """
 
 from __future__ import annotations
@@ -86,6 +103,7 @@ sys.modules["lime_tpu"] = None
 import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
+import datetime  # noqa: E402
 import io  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -95,6 +113,7 @@ import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from lime_tpu_torch import LimeConfig, native, reference  # noqa: E402
 from lime_tpu_torch import run_paired  # noqa: E402
@@ -114,6 +133,9 @@ from lime_tpu_torch.ops import pair_score as tps  # noqa: E402
 from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
     _classify_program_planes, _unpack_triplet, alloc_planes)
 from lime_tpu_torch.ops.fused_pass import staged_stream  # noqa: E402
+from lime_tpu_torch.parallel import make_mesh  # noqa: E402
+from lime_tpu_torch.parallel import sharded  # noqa: E402
+from lime_tpu_torch.parallel.dryrun import free_port, spawn_ranks  # noqa: E402
 from lime_tpu_torch.synth_big import (  # noqa: E402
     PAPER_GENOME_LEN, PAPER_GENOMES, PAPER_READ_LEN, compute_truth,
     paper_1f_sequences, paper_dataset, paper_sequences)
@@ -869,6 +891,141 @@ def phase_preprocess(pairs: int, card: str, dev: torch.device) -> dict:
     return launches
 
 
+def phase_sharded(ds, ref_csv: str, card: str, dev: torch.device) -> dict:
+    """Both SPMD engines at world size 1 on NCCL, at the paper shape;
+    returns each kernel's launches summed over the two runs, each counted
+    from 0 just before its run."""
+    cuda = dev.type == "cuda"
+    # gloo only where a CPU rehearsal runs the phase
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+        timeout=datetime.timedelta(minutes=10))
+    total = {name: 0 for name in REPLACES}
+    try:
+        mesh = make_mesh()
+        runs = (("banded", sharded.run_sharded, LimeConfig(dense_threshold=0)),
+                ("pair", sharded.run_sharded_pairs, LimeConfig()))
+        for label, runner, cfg in runs:
+            out_csv = os.path.join(ds.root, f"torch_sharded_{label}.csv")
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            for c in (pk, bk):
+                c.reset_launches()
+            t0 = time.perf_counter()
+            runner(ds.collections, out_csv, ds.num_reads, ds.num_genomes,
+                   ds.lineage_path, ds.read_len, cfg, mesh=mesh, device=dev)
+            wall = time.perf_counter() - t0
+            launches = {**pk.LAUNCHES, **bk.LAUNCHES}
+            pair = {k: launches[k] for k in CAP_OF}
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            st = sharded.LAST_RUN
+            if label == "banded":
+                ok = (launches["banded"] == len(ds.collections)
+                      and not any(pair.values()))
+                what = (f"K3 launches {launches['banded']} (one per "
+                        f"collection), dense chunks {st['dense_chunks']}, "
+                        f"window {st['window']}")
+            else:
+                want = dict(zip(CAP_OF, st["chunks_per_bucket"]))
+                ok = (not launches["banded"] and any(want.values())
+                      and pair == want)
+                what = (f"pair-kernel launches {pair} = planned chunks per "
+                        f"bucket {st['chunks_per_bucket']}")
+            if cuda and not ok:
+                raise AssertionError(f"[sharded] {label}: launches "
+                                     f"{launches}; {what}")
+            with open(ref_csv, "rb") as a, open(out_csv, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"[sharded] {label} engine's CSV "
+                                         "differs from the host reference")
+            phases = " ".join(f"{k}={v:.3f}s"
+                              for k, v in st["phases"].items())
+            partial = (len(ds.collections),
+                       fused_pipeline._r_pad_for(ds.num_reads),
+                       fused_pipeline._g_pad_for(ds.num_genomes))
+            log(f"[sharded] {label} engine, mesh {st['mesh']} on "
+                f"{dist.get_backend()} (one rank): {wall:.3f} s wall = "
+                f"{ds.num_reads / wall:.0f} reads/s; spans: {phases}; peak "
+                f"device memory {peak} B (the int8 partial {partial} is "
+                f"{int(np.prod(partial))} B); {what}; CSV byte-identical to "
+                f"the host reference ({card})")
+            for name in REPLACES:
+                total[name] += launches[name]
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    return total
+
+
+#: one rank of the dry run, with jax and the JAX package blocked
+RANK_CMD = [sys.executable, "-c",
+            "import sys; sys.modules['jax'] = None; "
+            "sys.modules['lime_tpu'] = None; "
+            "from lime_tpu_torch.parallel.dryrun import main; "
+            "sys.exit(main())"]
+
+
+def _dryrun_ranks(world: int, args: list, timeout: float) -> list:
+    """Spawn ``world`` dry-run ranks on this host; their results."""
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    outs = spawn_ranks(RANK_CMD + args, world, timeout, env=env, cwd=ROOT)
+    res = []
+    for out in outs:
+        lines = [ln for ln in out.splitlines() if ln.startswith("DRYRUN ")]
+        if len(lines) != 1:
+            raise AssertionError(
+                f"a rank printed no result:\n{out[-2000:]}")
+        res.append(json.loads(lines[0][len("DRYRUN "):]))
+    return sorted(res, key=lambda r: r["rank"])
+
+
+def phase_sharded_ranks(card: str, dev: torch.device,
+                        pairs: int = 100_000) -> dict:
+    """The dry run in 4 gloo ranks on the one card (2x2, both engines),
+    then the pair engine in 3 ranks (1x3); returns each kernel's launches
+    summed over every rank and run."""
+    root = os.path.join(ROOT, "build", f"dryrun_{pairs}")
+    common = ["--backend", "gloo", "--device", dev.type, "--pairs",
+              str(pairs), "--root", root]
+    total = {name: 0 for name in REPLACES}
+    for world, extra in ((4, ["--mesh", "2x2"]),
+                         (3, ["--mesh", "1x3", "--engines", "pair",
+                              "--no-blocked"])):
+        t0 = time.perf_counter()
+        res = _dryrun_ranks(world, common + extra, 300)
+        wall = time.perf_counter() - t0
+        r0 = res[0]
+        for engine in r0["engines"]:
+            per_rank = [r["engines"][engine]["launches"] for r in res]
+            names = ["banded"] if engine == "banded" else list(CAP_OF)
+            counts = [sum(lc[k] for k in names) for lc in per_rank]
+            if dev.type == "cuda" and (
+                    not all(counts)
+                    or engine == "banded" and counts != [4] * world):
+                raise AssertionError(f"[sharded_ranks] {engine} engine: "
+                                     f"launches per rank {per_rank}")
+            for lc in per_rank:
+                for name in REPLACES:
+                    total[name] += lc[name]
+            walls = [round(r["engines"][engine]["wall_s"], 3) for r in res]
+            log(f"[sharded_ranks] {extra[1]} ({world} gloo ranks on one "
+                f"card) {engine} engine: walls per rank {walls} s; "
+                f"{names} launches per rank {counts}; CSV byte-identical to "
+                f"the host reference ({card})")
+        extra_s = (f"; dataset and host reference "
+                   f"{r0.get('dataset_s', 0):.1f} s; forced row-blocked "
+                   f"fused run on rank 0 {r0['blocked_s']:.3f} s, "
+                   f"byte-identical" if "blocked_s" in r0 else "")
+        log(f"[sharded_ranks] {extra[1]}: {r0['dataset'][0]} pairs x "
+            f"{r0['dataset'][1]} genomes, rescued clusters {r0['rescued']} "
+            f"(count, longest); comm model {r0['comm_model']}; "
+            f"{wall:.1f} s with the ranks' start{extra_s} ({card})")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
@@ -913,12 +1070,16 @@ def main(argv=None) -> int:
     timed("index", phase_index, ds, smi, dev)
     preprocess = timed("preprocess", phase_preprocess, args.preprocess_pairs,
                        smi, dev)
+    on_sharded = timed("sharded", phase_sharded, ds, ref_csv, smi, dev)
+    on_ranks = timed("sharded_ranks", phase_sharded_ranks, smi, dev)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
                 **records[k], "blocked_path_launches": blocked[k],
                 "host_share_path_launches": host_share[k],
-                "preprocess_path_launches": preprocess[k]}
+                "preprocess_path_launches": preprocess[k],
+                "sharded_path_launches": {"sharded": on_sharded[k],
+                                          "sharded_ranks": on_ranks[k]}}
                for k in REPLACES]
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))

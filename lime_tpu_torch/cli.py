@@ -15,6 +15,15 @@ with the same arguments and options, plus ``--device``::
 ``.clrs`` / ``.res`` checkpoints) unless ``--fused`` asks for the serving
 path; ``--executor host`` runs the host stages (native C++ and numpy).
 
+``run-sharded`` runs an SPMD engine over a mesh of ranks, one process
+(and one device) per rank, under ``torchrun`` or the ``LIME_COORDINATOR``
+/ ``LIME_NUM_PROCESSES`` / ``LIME_PROCESS_ID`` variables; rank 0 writes
+the CSV::
+
+    torchrun --nproc-per-node 4 -m lime_tpu_torch.cli run-sharded \\
+        1F 1RC 2F 2RC out.csv NUM_READS NUM_GENOMES LineageFile.csv \\
+        READ_LEN [--engine pair|banded] [--mesh SPxDP] --device cuda
+
 The index surfaces run on the host and take no ``--device``::
 
     lime-tpu-torch preprocess READS1 GENOMES [--reads2 READS2] \\
@@ -110,8 +119,11 @@ def main(argv=None) -> int:
     p.add_argument("--text", action="store_true")
     _add_device(p)
 
-    for name in ("run-paired", "run-single"):
-        p = sub.add_parser(name, help=f"end-to-end {name[4:]} pipeline")
+    for name in ("run-paired", "run-single", "run-sharded"):
+        p = sub.add_parser(
+            name, help=("end-to-end SPMD pipeline over a mesh of ranks"
+                        if name == "run-sharded"
+                        else f"end-to-end {name[4:]} pipeline"))
         n = 2 if name == "run-single" else 4
         p.add_argument("collections", nargs=n,
                        help="1F 1RC 2F 2RC" if n == 4 else "F RC")
@@ -142,6 +154,16 @@ def main(argv=None) -> int:
                        help="device memory budget in bytes for the score "
                             "stack (sets LIME_HBM_BUDGET for the run); a "
                             "smaller one forces the row-blocked mode")
+        if name == "run-sharded":
+            p.add_argument("--devices", type=int, default=None,
+                           help="mesh size (default: every rank of the "
+                                "process group)")
+            p.add_argument("--engine", choices=["pair", "banded"],
+                           default="pair",
+                           help="SPMD engine: dp-sliced pair streams "
+                                "(default) or the banded kernel")
+            p.add_argument("--mesh", default=None, metavar="SPxDP",
+                           help="explicit mesh shape, e.g. 2x4")
         _add_common(p, scoring=True, classify=True)
         _add_device(p)
 
@@ -238,11 +260,13 @@ def _dispatch(args) -> int:
 
     cfg = _config_from(args).replace(
         alpha=args.alpha, beta=args.beta, tax_rank=args.tax_rank)
-    fn = run_paired if args.cmd == "run-paired" else run_single
     saved = os.environ.get("LIME_HBM_BUDGET")
     if args.hbm_budget is not None:
         os.environ["LIME_HBM_BUDGET"] = str(args.hbm_budget)
     try:
+        if args.cmd == "run-sharded":
+            return _run_sharded(args, cfg)
+        fn = run_paired if args.cmd == "run-paired" else run_single
         s = fn(args.collections, args.output, args.num_reads,
                args.num_genomes, args.lineage, args.read_len, cfg,
                keep_results=args.keep_results, device=args.device)
@@ -253,6 +277,28 @@ def _dispatch(args) -> int:
             os.environ["LIME_HBM_BUDGET"] = saved
     print(f"C={s.classified} H={s.higher} A={s.ambiguous} "
           f"U={s.unclassified} / {s.num_reads}")
+    return 0
+
+
+def _run_sharded(args, cfg: LimeConfig) -> int:
+    """``run-sharded``: start the process group (a no-op for one process),
+    build the mesh and run the chosen engine on every rank."""
+    from .parallel import (init_distributed, make_mesh, run_sharded,
+                           run_sharded_pairs)
+
+    init_distributed(device=args.device)
+    if args.mesh:
+        shape = [int(v) for v in args.mesh.lower().split("x")]
+        mesh = make_mesh(shape[0] * shape[1], shape=shape)
+    else:
+        mesh = make_mesh(args.devices)
+    runner = run_sharded_pairs if args.engine == "pair" else run_sharded
+    res = runner(args.collections, args.output, args.num_reads,
+                 args.num_genomes, args.lineage, args.read_len, cfg,
+                 mesh=mesh, device=args.device)
+    c = res.counts()
+    print(f"mesh {dict(mesh.shape)}: C={c['C']} H={c['H']} A={c['A']} "
+          f"U={c['U']} / {args.num_reads}")
     return 0
 
 

@@ -9,7 +9,7 @@ the reference and stays unchanged, so the port keeps these copies and
 - ``classify_block_size`` / ``pad_rows_for`` lime_tpu/ops/classify_tpu.py
 - ``pair_rows_local``                        lime_tpu/parallel/sharded.py
 - ``_g_pad_for`` / ``_r_pad_for`` / ``_classify_block_for``,
-  ``_score_small_dense`` / ``_rescue_sparse``
+  ``_score_small_dense`` / ``_rescue_sparse`` / ``_rescue``
                                              lime_tpu/ops/fused_pipeline.py
 - ``_gcol_padded`` / ``merge_coo_segments`` / ``_pack24``
                                              lime_tpu/ops/pair_score.py
@@ -19,8 +19,9 @@ the reference and stays unchanged, so the port keeps these copies and
                                              lime_tpu/ops/fused_pipeline.py
 - ``pack_stream`` and its bit positions      lime_tpu/ops/pallas_kernels.py
 
-``tests/test_torch_staged.py`` pins the last three rows and
-``tests/test_torch_blocked.py`` pins ``pair_rows_local``.  Where an
+``tests/test_torch_staged.py`` pins the last three rows,
+``tests/test_torch_blocked.py`` pins ``pair_rows_local`` and
+``tests/test_torch_sharded.py`` pins ``_rescue``.  Where an
 original branches on whether the native library loaded, the copy calls
 the library: the port's loader raises rather than falls back.
 """
@@ -277,6 +278,27 @@ def _rescue_sparse(bad_start, bad_len, da, ebwt, num_reads: int,
     if config.sim_modulus:
         vals = vals % config.sim_modulus
     return rows, cols, vals.astype(np.int32)
+
+
+def _rescue(bad_start, bad_len, da, ebwt, num_reads: int, num_genomes: int,
+            config: LimeConfig):
+    """Host-side exact scoring of routed clusters.
+
+    Returns ``("coo", rows, cols, vals)`` for small rescue sets or
+    ``("dense", matrix)`` (u8 with wrap / u32 wide — the reference's own
+    SimArray footprint, src/ClusterBWT_DA.cpp:606-611) when density routing
+    sends a large share of clusters to the host scorer.
+    """
+    total = int(np.asarray(bad_len, np.int64).sum())
+    if total <= _COO_POSITION_CAP and total < num_reads * num_genomes // 16:
+        return ("coo", *_rescue_sparse(bad_start, bad_len, da, ebwt,
+                                       num_reads, num_genomes, config))
+    mat = native.score_clusters_native(
+        np.asarray(bad_start, np.int64), np.asarray(bad_len, np.int64),
+        np.asarray(da), None if ebwt is None else np.asarray(ebwt),
+        num_reads, num_genomes, SYMBOL_RANK_LUT, _DEGENERATE_BYTE,
+        IUPAC_WATERFALL_PAIRS, wide=config.wide_sim, threads=0)
+    return ("dense", mat)
 
 
 # ---------------------------------------------------------------------------

@@ -692,3 +692,93 @@ def test_preprocess_fused_cuda_matches_host(cuda, deep, tmp_path):
     run_paired(cols, a, *args, FUSED, device=cuda)
     assert _read(a) == _read(c)
     assert sum(pk.LAUNCHES.values()) > 0
+
+
+def _nccl_world1():
+    """A one-rank NCCL process group on this process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from lime_tpu_torch.parallel.dryrun import free_port
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+        rank=0, timeout=datetime.timedelta(minutes=5))
+    return dist
+
+
+@pytest.mark.parametrize("engine", ["banded", "pair"])
+def test_sharded_engines_nccl_world1_match_reference(cuda, two_blocks,
+                                                     tmp_path, engine):
+    """Both SPMD engines at world size 1 on NCCL, on the card: the
+    reference CSV; K3 once per collection (banded), the pair kernel once
+    per planned chunk (pair)."""
+    from lime_tpu_torch.parallel import make_mesh, sharded
+
+    ds = two_blocks
+    args = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len)
+    ref = str(tmp_path / "ref.csv")
+    reference.reference_csv(ds.collections, ref, *args)
+    dist = _nccl_world1()
+    try:
+        runner = (sharded.run_sharded if engine == "banded"
+                  else sharded.run_sharded_pairs)
+        pk.reset_launches()
+        bk.reset_launches()
+        out = str(tmp_path / "out.csv")
+        runner(ds.collections, out, *args, mesh=make_mesh(), device=cuda)
+    finally:
+        dist.destroy_process_group()
+    assert _read(out) == _read(ref)
+    pair = [pk.LAUNCHES[k] for k in ("scan16", "scan64", "band")]
+    if engine == "banded":
+        assert bk.LAUNCHES["banded"] == 4 and not any(pair)
+    else:
+        assert pair == sharded.LAST_RUN["chunks_per_bucket"] and all(pair)
+        assert not bk.LAUNCHES["banded"]
+
+
+@pytest.mark.parametrize("engine,mesh", [("banded", [1, 2]),
+                                         ("pair", [2, 1])])
+def test_sharded_two_gloo_ranks_on_one_card(cuda, two_blocks, tmp_path,
+                                            engine, mesh):
+    """Two ranks on cuda:0 with gloo between them (NCCL refuses two ranks
+    on one device): the reference CSV, kernels launched in both ranks
+    (banded: dp = 2, the reduce-scatter; pair: sp = 2, each rank's own
+    position range; the reads past 16,384 of a dp = 2 split are this
+    set's negative controls, which plan no pair chunk)."""
+    from .test_torch_selfcontained import run_ranks
+
+    ds = two_blocks
+    ref = str(tmp_path / "ref.csv")
+    reference.reference_csv(ds.collections, ref, ds.num_reads,
+                            ds.num_genomes, ds.lineage_path, ds.read_len)
+    out = str(tmp_path / "out.csv")
+    outs = run_ranks(tmp_path / "ranks", {
+        "task": "run", "engine": engine, "mesh": mesh, "device": "cuda",
+        "csv": out, "ds": {"collections": ds.collections,
+                           "num_reads": ds.num_reads,
+                           "num_genomes": ds.num_genomes,
+                           "lineage_path": ds.lineage_path,
+                           "read_len": ds.read_len}}, 2, timeout=600)
+    assert _read(out) == _read(ref)
+    for o in outs:
+        assert o["last_run"]["memory"]["peak_bytes_in_use"] > 0
+        if engine == "banded":
+            assert o["launches"]["banded"] == 4
+        else:
+            assert sum(o["launches"][k] for k in ("scan16", "scan64",
+                                                  "band")) > 0
+
+
+def test_gloo_int8_reductions_wrap_on_cuda(cuda, tmp_path):
+    """gloo's int8 all_reduce and the mesh's reduce-scatter of CUDA
+    tensors wrap mod 256: 100 + 101 -> -55."""
+    from .test_torch_selfcontained import run_ranks
+
+    outs = run_ranks(tmp_path / "ranks", {"task": "wrap", "mesh": [1, 2],
+                                          "device": "cuda"}, 2)
+    for o in outs:
+        assert o["all_reduce"] == [-55] * 8
+        assert o["reduce_scatter"] == [-55] * 8

@@ -4,8 +4,9 @@ bytes, fields and constants as their originals.
 
 Also here, for every torch test file: :func:`ensure_reference_native`,
 the guard that loads ``lime_tpu``'s own native library safely when many
-test processes start at once, and :func:`jax_config`, which builds the
-JAX package's config from the port's.  The file imports no jax at module
+test processes start at once, :func:`jax_config`, which builds the
+JAX package's config from the port's, and :func:`run_ranks`, which runs
+``tests/_torch_dist_worker.py`` in one process per rank.  The file imports no jax at module
 level, so the CUDA tests (run without the suite's conftest) import it.
 """
 
@@ -61,6 +62,28 @@ def jax_config(cfg):
 ensure_reference_native()
 
 
+def run_ranks(root, spec: dict, world: int, timeout: float = 300) -> list:
+    """Run ``spec`` (see ``tests/_torch_dist_worker.py``) in ``world``
+    gloo ranks, one process each, under ``root``; every rank is killed
+    after ``timeout`` seconds.  Returns each rank's ``out.<rank>.json``."""
+    import json
+
+    from lime_tpu_torch.parallel.dryrun import spawn_ranks
+
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(str(root), "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
+    spawn_ranks([sys.executable, "-m", "tests._torch_dist_worker", path],
+                world, timeout, env=env, cwd=ROOT)
+    out = []
+    for r in range(world):
+        with open(os.path.join(str(root), f"out.{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
 def _read(path):
     with open(path, "rb") as f:
         return f.read()
@@ -80,7 +103,9 @@ def test_port_imports_nothing_of_jax_lime_tpu_or_tests():
     scanned = {os.path.relpath(p, PORT) for p in sources}
     assert {"preprocessing.py", "index/builder.py", "index/external.py",
             "index/torch_builder.py", "formats/fasta.py", "formats/gesa.py",
-            "utils/filter_fasta.py"} <= scanned
+            "utils/filter_fasta.py", "parallel/mesh.py",
+            "parallel/multihost.py", "parallel/sharded.py",
+            "parallel/dryrun.py", "synth.py"} <= scanned
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read())
