@@ -85,7 +85,25 @@ code is non-zero:
    fused run), then the pair engine alone in 3 ranks as a 1x3 mesh (dp =
    3: the chunk exchange); each rank's kernel launches come back, every
    rank must launch, and a rank that fails or outlives its timeout fails
-   the phase.  gloo takes the CUDA tensors directly (torch 2.11).
+   the phase.  gloo takes the CUDA tensors directly (torch 2.11);
+15. profile: ``[e2e]``'s fused run again, under ``LIME_PROFILE_DIR`` (a
+   temporary directory) and a ``MemoryProfiler(interval=0.5,
+   track_hbm=True)``: byte-identical; the trace's pair-hit kernel events
+   per cap equal the launch counts; the trace's size and export time,
+   the ten kernels with the most device time, the device's busy share
+   over the traced window (the union of kernel and copy intervals), the
+   wall beside ``[e2e]``'s and the memory profile;
+16. unpacked: the 1F collection through the one-byte-per-row path:
+   ``native.plan_pairs``, ``pair_score_into`` (the pair-hit kernel once
+   per chunk, after the reorder and re-encode on the card),
+   ``dense_score_into`` and the exact host scorer on what is left, into
+   one int8 ``(R + 1, G_pad)`` plane on the card; its first R rows and G
+   columns equal ``native.score_clusters_native`` on every cluster of
+   the collection, and every chunk's kernel equals the plain version on
+   read rows;
+17. dump_sim: ``LIME_DUMP_SIM=1`` on a 40-pair dataset (read length 60,
+   genomes of 2,000 and 1,500, seed 13): ``cluster_bwt`` with K3 on the
+   card prints the host executor's dump byte for byte, K3 launched once.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
@@ -109,13 +127,14 @@ import json  # noqa: E402
 import os  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
-from lime_tpu_torch import LimeConfig, native, reference  # noqa: E402
+from lime_tpu_torch import LimeConfig, host, native, reference  # noqa: E402
 from lime_tpu_torch import run_paired  # noqa: E402
 from lime_tpu_torch import cli  # noqa: E402
 from lime_tpu_torch import pipeline as staged_pipeline  # noqa: E402
@@ -130,6 +149,9 @@ from lime_tpu_torch.ops import cuda_build  # noqa: E402
 from lime_tpu_torch.ops import fused_pipeline  # noqa: E402
 from lime_tpu_torch.ops import pair_kernels as pk  # noqa: E402
 from lime_tpu_torch.ops import pair_score as tps  # noqa: E402
+from lime_tpu_torch.constants import (  # noqa: E402
+    IUPAC_WATERFALL_PAIRS, SYMBOL_RANK_LUT)
+from lime_tpu_torch.ops.dense_score import dense_score_into  # noqa: E402
 from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
     _classify_program_planes, _unpack_triplet, alloc_planes)
 from lime_tpu_torch.ops.fused_pass import staged_stream  # noqa: E402
@@ -139,7 +161,11 @@ from lime_tpu_torch.parallel.dryrun import free_port, spawn_ranks  # noqa: E402
 from lime_tpu_torch.synth_big import (  # noqa: E402
     PAPER_GENOME_LEN, PAPER_GENOMES, PAPER_READ_LEN, compute_truth,
     paper_1f_sequences, paper_dataset, paper_sequences)
-from lime_tpu_torch.utils.timing import event_ms, graph_ms  # noqa: E402
+from lime_tpu_torch.synth import make_dataset  # noqa: E402
+from lime_tpu_torch.utils.memory import (  # noqa: E402
+    MemoryProfiler, memory_report)
+from lime_tpu_torch.utils.timing import (  # noqa: E402
+    event_ms, graph_ms, pair_kernel_launches, read_trace, trace_summary)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_GENOMES, GENOME_LEN, READ_LEN = (PAPER_GENOMES, PAPER_GENOME_LEN,
@@ -372,6 +398,10 @@ def dataset(pairs: int):
     return ds
 
 
+#: each drive()'s wall by its label
+WALLS = {}
+
+
 def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
     """Run ``run_paired`` on ``dev`` with every launch count set to 0
     just before; return (launches, CSV bytes) after checking the CSV
@@ -388,6 +418,7 @@ def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
     summary = run_paired(ds.collections, out_csv, *shape,
                          keep_results=False, device=dev)
     wall = time.perf_counter() - t0
+    WALLS[label] = wall
     launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     stats = (fused_pipeline.LAST_RUN if cfg.fused
@@ -1026,6 +1057,189 @@ def phase_sharded_ranks(card: str, dev: torch.device,
     return total
 
 
+def phase_profile(ds, ref_csv: str, card: str, dev: torch.device) -> dict:
+    """[e2e]'s fused run under ``LIME_PROFILE_DIR`` and a memory profiler;
+    returns each kernel's launches, counted from 0 just before it."""
+    with tempfile.TemporaryDirectory() as prof_dir:
+        with environ({"LIME_PROFILE_DIR": prof_dir}), MemoryProfiler(
+                interval=0.5, track_hbm=True) as mem:
+            launches, _ = drive("profile", ds, LimeConfig(fused=True),
+                                ref_csv, card, dev, [pk, bk])
+        path, events = read_trace(prof_dir)
+        size = os.path.getsize(path)
+    summary = trace_summary(events)
+    seen = pair_kernel_launches(summary["kernels"])
+    want = {CAP_OF[name]: launches[name] for name in CAP_OF
+            if launches[name]}
+    if seen != want or launches["banded"]:
+        raise AssertionError(f"[profile] pair-hit kernel events per cap "
+                             f"{seen} in the trace, launches {want}; K3 "
+                             f"{launches['banded']}")
+    log(f"[profile] trace {os.path.basename(path)}: {size} B, "
+        f"{len(events)} events, exported in "
+        f"{fused_pipeline.LAST_RUN['trace_export_s']:.3f} s; pair-hit "
+        f"kernel events per cap {seen} = launches ({card})")
+    pair_us = sum(us for name, (_, us) in summary["kernels"].items()
+                  if "pair_hits_count_kernel" in name)
+    log(f"[profile] pair-hit kernel {pair_us / 1e3:.3f} ms of device time "
+        f"in the trace over {sum(seen.values())} launches ({card})")
+    top = sorted(summary["kernels"].items(), key=lambda kv: -kv[1][1])
+    for name, (n, us) in top[:10]:
+        log(f"[profile] kernel {us / 1e3:.3f} ms in {n} launches: "
+            f"{name[:110]}")
+    log(f"[profile] device busy {summary['busy_us'] / 1e3:.3f} ms of the "
+        f"{summary['window_us'] / 1e3:.3f} ms traced window = "
+        f"{summary['busy_share']:.2%} (union of kernel and copy "
+        f"intervals); {len(summary['kernels'])} kernel names, "
+        f"{sum(n for n, _ in summary['kernels'].values())} launches; wall "
+        f"{WALLS['profile']:.3f} s with the profiler, [e2e] "
+        f"{WALLS['e2e']:.3f} s without ({card})")
+    log(f"[profile] {mem.report()}")
+    return launches
+
+
+def phase_unpacked(ds, card: str, dev: torch.device) -> dict:
+    """The 1F collection through the one-byte-per-row pair path, the
+    dense path and the exact host scorer into one plane on ``dev``,
+    against the native scorer on every cluster; returns each kernel's
+    launches, counted from 0 just before the scoring."""
+    fasta = ds.collections[0]
+    lcp, da, ebwt = open_lcp(fasta), open_da(fasta), open_ebwt(fasta)
+    R, G = ds.num_reads, ds.num_genomes
+    g_pad = fused_pipeline._g_pad_for(G)
+    alpha = LimeConfig().alpha
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    buckets, den_s, den_l, bad_s, bad_l = native.plan_pairs(
+        lcp, da, ebwt, R, alpha, g_pad, SYMBOL_RANK_LUT,
+        host._DEGENERATE_BYTE.astype(np.uint8))
+    t_plan = time.perf_counter() - t0
+    pk.reset_launches()
+    bk.reset_launches()
+    t0 = time.perf_counter()
+    sim = torch.zeros((R + 1, g_pad), dtype=torch.int8, device=dev)
+    tps.pair_score_into(sim, buckets, R, g_pad)
+    sync()
+    t_pair = time.perf_counter() - t0
+    run = dict(tps.LAST_RUN)
+    t0 = time.perf_counter()
+    _, left_s, left_l = dense_score_into(sim, den_s, den_l, da, ebwt, R, G,
+                                         g_pad)
+    sync()
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rest = native.score_clusters_native(
+        np.concatenate([bad_s, left_s]), np.concatenate([bad_l, left_l]),
+        da, ebwt, R, G, SYMBOL_RANK_LUT, host._DEGENERATE_BYTE,
+        IUPAC_WATERFALL_PAIRS, threads=0)
+    sim[:R, :G] += torch.from_numpy(rest.view(np.int8)).to(dev)
+    sync()
+    t_host = time.perf_counter() - t0
+    launches = {**pk.LAUNCHES, **bk.LAUNCHES}
+    wall = t_plan + t_pair + t_dense + t_host
+    got = sim[:R, :G].cpu().numpy().view(np.uint8)
+    del sim, rest
+    t0 = time.perf_counter()
+    starts, lens = native.plan_clusters(lcp, da, R, alpha, threads=0)
+    want = native.score_clusters_native(
+        starts, lens, da, ebwt, R, G, SYMBOL_RANK_LUT,
+        host._DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS, threads=0)
+    t_ref = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        bad = np.argwhere(got != want)
+        raise AssertionError(f"[unpacked] plane differs from the native "
+                             f"scorer in {len(bad)} cells, first "
+                             f"{bad[:3].tolist()}")
+    expected = {name: run["chunks"][name] if cuda else 0 for name in CAP_OF}
+    if ({name: launches[name] for name in CAP_OF} != expected
+            or launches["banded"] or run["host_copies"]):
+        raise AssertionError(f"[unpacked] launches {launches}, chunks "
+                             f"{run['chunks']}, host copies "
+                             f"{run['host_copies']} (0 expected)")
+    # every chunk again, for the check and the reorder's time (these
+    # launches are not the path's)
+    reorder_ms, rows = 0.0, {name: 0 for name in CAP_OF}
+    for chunk_p, _, window, cap, _, _ in tps.unpacked_chunks(buckets, R,
+                                                             g_pad):
+        packed = torch.from_numpy(chunk_p).to(dev)
+        codes, _ = tps.kernel_codes(packed)
+        name = pk._KERNEL_FOR_CAP[cap]
+        _check_pair(name, codes, window, cap)
+        rows[name] += len(chunk_p)
+        reorder_ms += event_ms(lambda: tps.kernel_codes(packed))
+    del packed, codes
+    per_bucket = ", ".join(f"window {w}: {len(p)} rows"
+                           for p, _, w in buckets)
+    pair = {name: launches[name] for name in CAP_OF}
+    log(f"[unpacked] 1F stream ({per_bucket}); chunks {run['chunks']} "
+        f"({run['rows']} rows with pads), host copies "
+        f"{run['host_copies']}; pair-hit launches {pair} = chunks, K3 0; "
+        f"every chunk exact against the plain version on read rows "
+        f"(rows per kernel {rows}); reorder and re-encode "
+        f"{reorder_ms:.3f} ms summed per call ({card})")
+    log(f"[unpacked] plane ({R + 1}, {g_pad}) int8 equal to "
+        f"score_clusters_native on {len(starts)} clusters "
+        f"({len(den_s)} dense, {len(left_s)} of them left to the host, "
+        f"{len(bad_s)} rescued); {wall:.3f} s wall: plan {t_plan:.3f} s, "
+        f"pair_score_into {t_pair:.3f} s, dense_score_into "
+        f"{t_dense:.3f} s, host scorer {t_host:.3f} s; native reference "
+        f"{t_ref:.3f} s ({card})")
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _dump(out: str) -> str:
+    lo = out.index("***FINAL***")
+    return out[lo:out.index("***********", lo) + len("***********\n")]
+
+
+def phase_dump_sim(card: str, dev: torch.device) -> dict:
+    """``LIME_DUMP_SIM=1`` in ``cluster_bwt``, K3 on ``dev`` against the
+    host executor; returns each kernel's launches in the device run."""
+    root = os.path.join(ROOT, "build", "dump_sim")
+    shutil.rmtree(root, ignore_errors=True)
+    ds = make_dataset(root, num_pairs=40, read_len=60,
+                      genome_lens=(2000, 1500), seed=13)
+    col = ds.collections[0]
+    staged_pipeline.cluster_lcp(col, ds.num_reads, ds.num_genomes,
+                                LimeConfig())
+    dumps, launches = {}, {}
+    with environ({"LIME_DUMP_SIM": "1"}):
+        for executor in ("host", "tpu"):
+            pk.reset_launches()
+            bk.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                staged_pipeline.cluster_bwt(
+                    col, ds.read_len, LimeConfig(executor=executor),
+                    device=dev)
+            wall = time.perf_counter() - t0
+            launches = {**pk.LAUNCHES, **bk.LAUNCHES}
+            dumps[executor] = _dump(out.getvalue())
+    k3_once = dev.type != "cuda" or launches["banded"] == 1
+    if dumps["tpu"] != dumps["host"] or not k3_once:
+        raise AssertionError(f"[dump_sim] device dump "
+                             f"{len(dumps['tpu'])} B, host dump "
+                             f"{len(dumps['host'])} B, equal "
+                             f"{dumps['tpu'] == dumps['host']}; K3 "
+                             f"launches {launches['banded']}")
+    rows = dumps["tpu"].splitlines()[1:-1]
+    log(f"[dump_sim] {ds.num_reads} reads x {ds.num_genomes} genomes: the "
+        f"device dump ({len(dumps['tpu'])} B, {len(rows)} rows, "
+        f"{sum(v != '0' for r in rows for v in r.split())} nonzero cells) "
+        f"equals the host executor's byte for byte; K3 launches "
+        f"{launches['banded']}; cluster_bwt {wall:.3f} s ({card})")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
@@ -1072,6 +1286,9 @@ def main(argv=None) -> int:
                        smi, dev)
     on_sharded = timed("sharded", phase_sharded, ds, ref_csv, smi, dev)
     on_ranks = timed("sharded_ranks", phase_sharded_ranks, smi, dev)
+    profile = timed("profile", phase_profile, ds, ref_csv, smi, dev)
+    unpacked = timed("unpacked", phase_unpacked, ds, smi, dev)
+    dump_sim = timed("dump_sim", phase_dump_sim, smi, dev)
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -1079,8 +1296,12 @@ def main(argv=None) -> int:
                 "host_share_path_launches": host_share[k],
                 "preprocess_path_launches": preprocess[k],
                 "sharded_path_launches": {"sharded": on_sharded[k],
-                                          "sharded_ranks": on_ranks[k]}}
+                                          "sharded_ranks": on_ranks[k]},
+                "profile_path_launches": profile[k],
+                "unpacked_path_launches": unpacked[k],
+                "dump_sim_path_launches": dump_sim[k]}
                for k in REPLACES]
+    log(f"[memory] {memory_report()}".replace("\n", "; "))
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -3,8 +3,9 @@
 Copy of ``lime_tpu/native/__init__.py``'s loader and of the wrappers the
 port calls, over a byte-identical copy of ``csrc/lime_native.cpp``: the
 index builder (in RAM, and the blockwise build, merge and Kasai pass of
-``index/external.py``), the cluster and pair-stream planners, the exact SIMD
-scorer, the delta-COO compactor and the CSV formatter.
+``index/external.py``), the cluster and pair-stream planners (packed and
+one byte per row), the exact SIMD scorer, the fused plan-and-score to
+delta-COO, the delta-COO compactor and the CSV formatter.
 
 The library is built with g++ at first use into
 ``build/lime_tpu_torch/native/liblime_native.so`` by
@@ -101,6 +102,16 @@ def _load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
         ]
+        lib.lime_plan_pairs.restype = ctypes.c_int64
+        lib.lime_plan_pairs.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
         lib.lime_plan_pairs_packed.restype = ctypes.c_int64
         lib.lime_plan_pairs_packed.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -156,6 +167,17 @@ def _load() -> ctypes.CDLL:
         lib.lime_kasai_files.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_int64,
+        ]
+        lib.lime_plan_score_coo.restype = ctypes.c_int64
+        lib.lime_plan_score_coo.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_uint32,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         lib.lime_coo_compact.restype = ctypes.c_int64
         lib.lime_coo_compact.argtypes = [
@@ -273,6 +295,71 @@ def plan_native(lcp: np.ndarray, da: np.ndarray, ebwt: np.ndarray | None,
     return (packed[:n_pad], doc[:n_pad], nc, window,
             bad_start[:nbad].copy(), bad_len[:nbad].copy(),
             dense_start[:ndense].copy(), dense_len[:ndense].copy())
+
+
+def plan_pairs(lcp: np.ndarray, da: np.ndarray, ebwt: np.ndarray | None,
+               num_reads: int, alpha: int, g_pad: int,
+               sym_lut: np.ndarray, deg_lut: np.ndarray,
+               dense_min: int = 16):
+    """One C++ pass: cluster scan + routing + pair-stream emission.
+
+    The one-byte-per-row pair plan (lime_plan_pairs in csrc): sparse
+    clusters become per-genome-document "copies" — packed chain/side/sym
+    bytes (bit 6 m, bit 5 docrun, bit 4 side, bits 0-3 symbol rank) plus a
+    flat int32 scatter index — binned into 3 window buckets; genome-dense
+    clusters and host-rescue clusters are listed separately.
+
+    Returns ``(buckets, dense_start, dense_len, bad_start, bad_len)``
+    where buckets is a list of up to 3 ``(packed, flatidx, window)``
+    tuples (empty buckets omitted).  Releases the GIL for the whole pass.
+    """
+    lib = _load()
+    if (num_reads + 1) * g_pad > 2**31 - 1:
+        raise ValueError("num_reads * g_pad exceeds int32 scatter range; "
+                         "use the row-blocked path")
+    lcp = np.ascontiguousarray(lcp, dtype=np.uint32)
+    da = np.ascontiguousarray(da, dtype=np.uint32)
+    eb_ptr = 0
+    if ebwt is not None:
+        ebwt = np.ascontiguousarray(ebwt, dtype=np.uint8)
+        eb_ptr = ebwt.ctypes.data
+    sym_lut = np.ascontiguousarray(sym_lut, dtype=np.uint8)
+    deg_lut = np.ascontiguousarray(deg_lut, dtype=np.uint8)
+    n = len(lcp)
+    n_clusters_cap = n // 2 + 1
+    dense_start = np.empty(n_clusters_cap, dtype=np.int64)
+    dense_len = np.empty(n_clusters_cap, dtype=np.int64)
+    bad_start = np.empty(n_clusters_cap, dtype=np.int64)
+    bad_len = np.empty(n_clusters_cap, dtype=np.int64)
+    meta = np.zeros(8, dtype=np.int64)
+    cap = n + n // 8 + 1024  # replication makes the size data-dependent
+    for _ in range(2):
+        packed = np.empty(cap, dtype=np.uint8)
+        flatidx = np.empty(cap, dtype=np.int32)
+        rc = lib.lime_plan_pairs(
+            lcp.ctypes.data, da.ctypes.data, eb_ptr, n, num_reads, alpha,
+            dense_min, g_pad, sym_lut.ctypes.data, deg_lut.ctypes.data,
+            cap, packed.ctypes.data, flatidx.ctypes.data,
+            dense_start.ctypes.data, dense_len.ctypes.data,
+            bad_start.ctypes.data, bad_len.ctypes.data, meta.ctypes.data)
+        if rc == 0:
+            break
+        if rc == 1:
+            cap = int(meta[0])
+            continue
+        raise RuntimeError(f"lime_plan_pairs failed: {rc}")
+    else:
+        raise RuntimeError("lime_plan_pairs capacity retry failed")
+    needed, ndense, nbad = int(meta[0]), int(meta[1]), int(meta[2])
+    offs = [0, int(meta[6]), int(meta[7]), needed]
+    buckets = []
+    for b in range(3):
+        lo, hi = offs[b], offs[b + 1]
+        if hi > lo:
+            buckets.append((packed[lo:hi], flatidx[lo:hi],
+                            int(meta[3 + b])))
+    return (buckets, dense_start[:ndense].copy(), dense_len[:ndense].copy(),
+            bad_start[:nbad].copy(), bad_len[:nbad].copy())
 
 
 def row_bits_for(num_reads: int) -> int:
@@ -473,6 +560,65 @@ def score_clusters_native(starts: np.ndarray, lens: np.ndarray,
     if rc != 0:
         raise RuntimeError(f"lime_score_clusters failed: {rc}")
     return out
+
+
+def plan_score_coo(lcp: np.ndarray, da: np.ndarray,
+                   ebwt: np.ndarray | None, num_reads: int, num_refs: int,
+                   alpha: int, sym_lut: np.ndarray, deg_lut: np.ndarray,
+                   wf_pairs: Sequence[Tuple[int, int]],
+                   threads: int = 1, max_drow: int = 15):
+    """Fused one-pass plan+score to a delta-COO chain.
+
+    One C++ pass over the index detects alpha-clusters, applies the
+    membership filter, scores every cluster (reference-exact u8 counter
+    semantics, src/ClusterBWT_DA.cpp:81-252) and returns the similarity
+    nonzeros as one delta-COO chain ``(base_row, drow, col, val)``; the
+    dense (R, G) plane is never materialised.
+
+    Returns ``(chain_or_None, n_clusters, n_positions)``.  Releases the
+    GIL for the whole pass.  u8 counters only (wide runs keep the dense
+    plane path).
+    """
+    lib = _load()
+    lcp = np.ascontiguousarray(lcp, dtype=np.uint32)
+    da = np.ascontiguousarray(da, dtype=np.uint32)
+    eb_ptr = 0
+    if ebwt is not None:
+        ebwt = np.ascontiguousarray(ebwt, dtype=np.uint8)
+        eb_ptr = ebwt.ctypes.data
+    sym_lut = np.ascontiguousarray(sym_lut, dtype=np.uint8)
+    deg_lut = np.ascontiguousarray(deg_lut, dtype=np.uint8)
+    wf = np.ascontiguousarray(
+        np.asarray(wf_pairs, dtype=np.int32).reshape(-1))
+    if threads <= 0:
+        threads = min(os.cpu_count() or 1, 16)
+    n = len(lcp)
+    meta = np.zeros(4, dtype=np.int64)
+    cap = max(1 << 22, n // 8)
+    for _ in range(2):
+        drow = np.empty(cap, np.uint8)
+        col = np.empty(cap, np.uint16)
+        val = np.empty(cap, np.uint8)
+        rc = lib.lime_plan_score_coo(
+            lcp.ctypes.data, da.ctypes.data, eb_ptr, n, num_reads,
+            num_refs, alpha, sym_lut.ctypes.data, deg_lut.ctypes.data,
+            wf.ctypes.data, len(wf) // 2, threads, max_drow, cap,
+            drow.ctypes.data, col.ctypes.data, val.ctypes.data,
+            meta.ctypes.data)
+        if rc == 0:
+            break
+        if rc == 1:
+            cap = int(meta[0]) + 8
+            continue
+        raise RuntimeError(f"lime_plan_score_coo failed: {rc}")
+    else:
+        raise RuntimeError("lime_plan_score_coo capacity retry failed")
+    cnt = int(meta[0])
+    n_clusters, n_pos = int(meta[2]), int(meta[3])
+    if cnt == 0:
+        return None, n_clusters, n_pos
+    chain = (int(meta[1]), drow[:cnt], col[:cnt], val[:cnt])
+    return chain, n_clusters, n_pos
 
 
 def plan_clusters(lcp: np.ndarray, da: np.ndarray, num_reads: int,

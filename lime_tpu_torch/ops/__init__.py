@@ -1,4 +1,27 @@
-"""Operators of the port: the pair-hit and banded kernels, packed pair
-scoring, dense histogram matmul, the classify program and the fused
-pipeline on the device; on the host, copies of ``lime_tpu``'s scoring
-helpers, cluster metadata and numpy cascade."""
+"""Operators of the port: the pair-hit and banded kernels, packed and
+one-byte-per-row pair scoring, dense histogram matmul, the classify
+program and the fused pipeline on the device; on the host, copies of
+``lime_tpu``'s scoring helpers, cluster metadata and numpy cascade.
+
+``normalize_scores`` and ``classify_reads`` are re-exported here, as
+``lime_tpu.ops`` does, and imported at first use: importing the package,
+which every ``ops.<module>`` import does, loads nothing else (no CUDA
+library either; the kernels build at their first launch), so
+``kernel_ab`` can load another checkout's kernel modules alone.
+``lime_tpu``'s numpy ``find_clusters`` and ``score_clusters`` are
+fallbacks for a missing native library, which the port does not have
+(its loader raises).
+"""
+
+import importlib
+
+__all__ = ["normalize_scores", "classify_reads"]
+
+_EXPORTS = {"normalize_scores": "scoring", "classify_reads": "classify_ops"}
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__),
+                   name)

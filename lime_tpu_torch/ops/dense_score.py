@@ -19,11 +19,17 @@ In the row-blocked mode each chunk uploads once per run and is replayed
 once per row block by a plain loop (:func:`_dense_chunk_offset`);
 ``lime_tpu``'s ``_dense_scan_class`` batches the replays with
 ``lax.scan`` only to amortise its relay's launch cost.
+
+:func:`dense_score_into` is the whole path for one cluster list: pack on
+the host, then every chunk into one plane.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..host import B_BLK, C_BLK, K, PR, pack_chunks
 
 
 def _dense_rows(ridx: torch.Tensor, gidx: torch.Tensor, cmap: torch.Tensor,
@@ -75,3 +81,24 @@ def _dense_chunk_offset(stack: torch.Tensor, fi: int, ridx: torch.Tensor,
     local = rid.to(torch.int64) - row_base
     sel = torch.nonzero((local >= 0) & (local < stack.shape[1])).squeeze(1)
     stack[fi].index_add_(0, local[sel], add[sel].to(stack.dtype))
+
+
+def dense_score_into(sim: torch.Tensor, starts: np.ndarray,
+                     lens: np.ndarray, da: np.ndarray, ebwt, num_reads: int,
+                     num_genomes: int, g_pad: int):
+    """Accumulate dense-cluster scores into the plane ``sim``.
+
+    ``sim`` is the ``(rows >= num_reads + 1, g_pad)`` accumulator (int8
+    or int32) with the scatter drop row at ``num_reads``; it is updated
+    in place, on the current stream.  Returns ``(sim, left_starts,
+    left_lens)``: the clusters the identity cannot express, for the exact
+    host scorer (``lime_tpu.ops.dense_score.dense_score_into``'s
+    contract).
+    """
+    chunks, left_s, left_l = pack_chunks(starts, lens, da, ebwt, num_reads,
+                                         num_genomes, g_pad)
+    f = (4 if ebwt is not None else 1) * K
+    for arrs in chunks:
+        _dense_chunk(sim, *(torch.from_numpy(a).to(sim.device)
+                            for a in arrs), B_BLK, C_BLK, PR, f, g_pad)
+    return sim, left_s, left_l

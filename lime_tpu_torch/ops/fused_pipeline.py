@@ -60,6 +60,7 @@ import logging
 import os
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Sequence
 
@@ -358,7 +359,42 @@ def _dispatch_dense(plane: torch.Tensor, d_chunks, f_feat: int, g_pad: int,
 def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
               lineage: Lineage, read_len: int, config: LimeConfig,
               device) -> ClassifyResult:
-    """Classify every read of 2 or 4 collection indexes on ``device``."""
+    """Classify every read of 2 or 4 collection indexes on ``device``.
+
+    Set ``LIME_PROFILE_DIR`` to capture a ``torch.profiler`` trace of the
+    whole run, the row-blocked and host-share branches included, into
+    that directory (the TensorBoard plugin's ``*.pt.trace.json``, the
+    counterpart of ``lime_tpu``'s ``jax.profiler.trace``): host
+    activity, and on a card its kernels and copies.  Shapes and stacks
+    are not recorded; ``LAST_RUN["trace_export_s"]`` is the time the
+    trace took to write.
+    """
+    prof_dir = os.environ.get("LIME_PROFILE_DIR")
+    if not prof_dir:
+        return _run_fused_inner(collections, num_reads, num_genomes,
+                                lineage, read_len, config, device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    write = torch.profiler.tensorboard_trace_handler(prof_dir)
+    export_s = []
+
+    def export(prof):
+        t0 = time.perf_counter()
+        write(prof)
+        export_s.append(time.perf_counter() - t0)
+
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=export):
+        result = _run_fused_inner(collections, num_reads, num_genomes,
+                                  lineage, read_len, config, device)
+    LAST_RUN["trace_export_s"] = export_s[0]
+    return result
+
+
+def _run_fused_inner(collections: Sequence[str], num_reads: int,
+                     num_genomes: int, lineage: Lineage, read_len: int,
+                     config: LimeConfig, device) -> ClassifyResult:
     timer = PhaseTimer("torch_fused_pipeline")
     F = len(collections)
     if F not in (2, 4):

@@ -15,15 +15,24 @@ In the row-blocked mode the uploaded buffers stay on the device and
 every chunk is replayed once per row block, by a plain loop, into an
 ``(F, B, G_pad)`` stack (:func:`pair_score_packed_offset`): ``lime_tpu``
 replays them with ``lax.scan`` only to amortise its relay's launch cost.
+
+The one-byte-per-row stream of ``native.plan_pairs`` (bit 6 m, bit 5
+docrun, bit 4 side, bits 0-3 symbol rank, plus an int32 scatter index per
+row) is scored by :func:`pair_score_into`, on the same pair-hit kernel:
+``lime_tpu`` scores it with its XLA band formula, which the kernel's
+plain version is.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from ..host import _gcol_padded, _pack24
-from .pair_kernels import BUCKET_CAPS, PAIR_TILE, _pair_hits_core, pair_hits
+from .pair_kernels import (_KERNEL_FOR_CAP, BUCKET_CAPS, LAUNCHES, PAIR_TILE,
+                           _pair_hits_core, pair_hits)
 
 __all__ = ["BUCKET_CAPS", "PAIR_TILE", "_pair_hits_core", "_unpack_bits5",
            "_unpack_rows", "_hits_dispatch", "_pair_packed_block",
@@ -31,7 +40,21 @@ __all__ = ["BUCKET_CAPS", "PAIR_TILE", "_pair_hits_core", "_unpack_bits5",
            "pair_score_packed_into", "pair_score_packed_offset",
            "chunk_views",
            "chunk_codes", "coo_scatter_into", "coo_scatter_into_stack",
-           "to_device"]
+           "to_device", "PAIR_CHUNK", "PAIR_CHUNK_SMALL", "LAST_RUN",
+           "pair_score_into", "pair_hits_host", "unpacked_chunks",
+           "kernel_codes"]
+
+# Upload chunk sizes (rows) of the one-byte-per-row stream, as
+# ``lime_tpu``'s: streams ship in chunks cut at copy boundaries, on a
+# pow2 ladder between the two sizes (a 300K stream must not pad to 8M
+# rows).  Both are multiples of PAIR_TILE, as the pair-hit kernel needs.
+PAIR_CHUNK = 8 << 20
+PAIR_CHUNK_SMALL = 256 << 10
+
+#: :func:`pair_score_into`'s last run: ``chunks`` per pair-hit kernel
+#: (one launch each on a card), ``rows`` scored and ``host_copies``, the
+#: copies holding a symbol above rank 3 that the host scored
+LAST_RUN: dict = {}
 
 
 def _unpack_bits5(bits_b: torch.Tensor) -> torch.Tensor:
@@ -291,3 +314,204 @@ def coo_scatter_into_stack(stack: torch.Tensor, chain, fi: int, keep: list,
     g_pad)`` stack is a contiguous view, so the plain scatters add into
     the stack in place."""
     coo_scatter_into(stack[fi], chain, keep, packed24=packed24)
+
+
+# ---------------------------------------------------------------------------
+# One byte per row: native.plan_pairs' stream
+# ---------------------------------------------------------------------------
+
+#: the byte of a pad row in both layouts: genome side, m = 0, docrun 0,
+#: symbol 0, so a copy of its own with no read row (the packed planner's
+#: pad); a read-side pad would start a copy with no genome run
+PAD_BYTE = 0x10
+
+
+def _cut_at_copy(packed: np.ndarray, lo: int, hi: int) -> int:
+    """Largest copy-start index in (lo, hi] — every copy is <= 255 rows,
+    so one exists within the last 256 positions of any window."""
+    tail = packed[max(lo + 1, hi - 256):hi]
+    starts = np.flatnonzero((tail & 0x40) == 0)
+    if len(starts) == 0:  # single giant copy cannot happen by construction
+        raise AssertionError("no copy boundary within 256 rows")
+    return hi - len(tail) + int(starts[-1])
+
+
+def pair_hits_host(packed: np.ndarray) -> np.ndarray:
+    """Pure-numpy oracle of the pair hits of a one-byte-per-row stream
+    (copy of ``lime_tpu.ops.pair_score.pair_hits_host``).
+
+    Scans whole runs instead of a band — identical to the band formula
+    whenever every copy is no longer than its bucket window, which the
+    planner guarantees by construction.  Occurrence indexes are ranks
+    within (doc-run, symbol) groups, and hits are per-(copy, symbol, occ)
+    genome-row counts via one np.unique + bincount.
+    """
+    m = ((packed >> 6) & 1).astype(bool)
+    dr = ((packed >> 5) & 1).astype(bool)
+    gs = ((packed >> 4) & 1).astype(bool)
+    sym = (packed & 15).astype(np.int64)
+    n = len(packed)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    seg_doc = np.cumsum(~dr)         # doc-run id per row
+    seg_copy = np.cumsum(~m)         # copy (cluster-run) id per row
+    # occ = rank in position order within each (doc-run, symbol) group
+    # (lexsort is stable, so equal keys keep position order)
+    order = np.lexsort((sym, seg_doc))
+    key = seg_doc[order] * 16 + sym[order]
+    new = np.empty(n, bool)
+    new[0] = True
+    new[1:] = key[1:] != key[:-1]
+    starts = np.flatnonzero(new)
+    lens = np.diff(np.append(starts, n))
+    rank_sorted = np.arange(n, dtype=np.int64) - np.repeat(starts, lens)
+    occ = np.empty(n, np.int64)
+    occ[order] = rank_sorted
+    # hits[i] (read rows) = genome rows in the same copy with the same
+    # (symbol, occ) key
+    combined = (seg_copy * 16 + sym) * np.int64(n + 1) + occ
+    _, inv = np.unique(combined, return_inverse=True)
+    g_count = np.bincount(inv[gs], minlength=int(inv.max()) + 1)
+    return np.where(gs, 0, g_count[inv]).astype(np.int32)
+
+
+def _cap_for(window: int) -> int:
+    """The smallest bucket cap holding copies of ``window`` rows: the
+    kernel's cap comes from the window, since the planner leaves empty
+    buckets out of its list."""
+    for cap in BUCKET_CAPS:
+        if window <= cap:
+            return cap
+    raise ValueError(f"pair window {window} exceeds {BUCKET_CAPS[-1]}")
+
+
+def _host_scored(chunk: np.ndarray, flat: np.ndarray):
+    """The copies of one chunk holding a symbol above rank 3 (the
+    ``'\\0'`` terminator, rank 15), which the kernel's 2-bit symbols
+    cannot tell apart, scored on the host with :func:`pair_hits_host`.
+
+    Their rows become pad rows in ``chunk`` (in place), so the kernel
+    counts nothing there.  Returns ``(flat, hits)`` of their read rows
+    and the number of such copies.
+    """
+    wide_sym = (chunk & 15) > 3
+    if not wide_sym.any():
+        return None, 0
+    copy = np.cumsum((chunk & 0x40) == 0)
+    held = np.unique(copy[wide_sym])
+    rows = np.flatnonzero(np.isin(copy, held))
+    sub = chunk[rows]
+    hits = pair_hits_host(sub)
+    read = (sub & 0x10) == 0
+    chunk[rows] = PAD_BYTE
+    return (flat[rows][read], hits[read]), len(held)
+
+
+def unpacked_chunks(buckets, num_reads: int, g_pad: int):
+    """``native.plan_pairs``' buckets cut into upload chunks, as
+    ``lime_tpu``'s ``pair_score_into`` cuts them: per chunk ``(packed,
+    flat, window, cap, host, n_host)``, numpy, padded to its ladder size
+    with :data:`PAD_BYTE` rows whose index is the ``num_reads * g_pad``
+    drop cell; ``host`` and ``n_host`` as :func:`_host_scored` returns
+    them (the copies are pad rows in ``packed`` already)."""
+    drop_flat = num_reads * g_pad
+    for packed, flat, window in buckets:
+        n = len(packed)
+        cap = _cap_for(window)
+        size = PAIR_CHUNK_SMALL
+        while size < n and size < PAIR_CHUNK:
+            size <<= 1
+        lo = 0
+        while lo < n:
+            hi = min(lo + size, n)
+            if hi < n:
+                hi = _cut_at_copy(packed, lo, hi)
+            chunk_p = np.full(size, PAD_BYTE, np.uint8)
+            chunk_p[:hi - lo] = packed[lo:hi]
+            chunk_f = np.full(size, drop_flat, np.int32)
+            chunk_f[:hi - lo] = flat[lo:hi]
+            host, n_host = _host_scored(chunk_p[:hi - lo], chunk_f[:hi - lo])
+            yield chunk_p, chunk_f, window, cap, host, n_host
+            lo = hi
+
+
+def kernel_codes(packed: torch.Tensor):
+    """One chunk of the one-byte-per-row stream reordered and re-encoded
+    for the pair-hit kernel, on ``packed``'s device.
+
+    The kernel reads a copy's genome count at its last row, but
+    ``native.plan_pairs`` emits a copy's document runs in first-seen
+    order, so its genome run may come first or in the middle.  A stable
+    sort keyed by (copy, side) moves it last; the hits do not depend on
+    the order of the runs (occurrences count within a document run, a
+    read row's hits over its copy).  The bytes are re-encoded as the
+    kernel's codes (bits 0-1 symbol, 2 m, 3 docrun, 4 side), m recomputed
+    for the new order.  Returns ``(codes, perm)``: uint8 codes and the
+    int64 permutation, ``codes[i]`` being input row ``perm[i]``.
+    """
+    p = packed.to(torch.int32)
+    copy = torch.cumsum(1 - ((p >> 6) & 1), 0)
+    key = copy.to(torch.int64) * 2 + ((p >> 4) & 1)
+    key, perm = torch.sort(key, stable=True)
+    p = p[perm]
+    copy = key >> 1
+    m = torch.ones_like(p)
+    m[0] = 0
+    m[1:] = (copy[1:] == copy[:-1]).to(torch.int32)
+    codes = ((p & 3) | (m << 2) | (((p >> 5) & 1) << 3)
+             | (((p >> 4) & 1) << 4))
+    return codes.to(torch.uint8), perm
+
+
+def _pair_chunk(sim: torch.Tensor, packed: torch.Tensor,
+                flat: torch.Tensor, window: int, cap: int, host,
+                drop: int) -> None:
+    """One chunk: reorder and re-encode, pair hits (the kernel of ``cap``
+    on a card, its plain version on the CPU), one scatter-add into
+    ``sim``; the host-scored copies' hits join the scatter.  Genome rows
+    add zero at cells of the drop row, spread over its columns."""
+    codes, perm = kernel_codes(packed)
+    hits = pair_hits(codes, window, cap)
+    gs = ((codes >> 4) & 1).bool()
+    g_pad = sim.shape[1]
+    spread = torch.arange(codes.shape[0], device=codes.device) % g_pad
+    idx = torch.where(gs, drop + spread, flat[perm].to(torch.int64))
+    vals = torch.where(gs, 0, hits)
+    if host is not None:
+        h_flat, h_hits = host
+        idx = torch.cat([idx, torch.from_numpy(h_flat).to(
+            idx.device, torch.int64)])
+        vals = torch.cat([vals, torch.from_numpy(h_hits).to(vals.device)])
+    sim.view(-1).index_add_(0, idx, vals.to(sim.dtype))
+
+
+def pair_score_into(sim: torch.Tensor, buckets, num_reads: int, g_pad: int,
+                    timer=None) -> torch.Tensor:
+    """Accumulate ``native.plan_pairs``' buckets into the plane ``sim``.
+
+    ``sim`` is an int8 (or int32, ``wide_sim``) ``(rows > num_reads,
+    g_pad)`` tensor; row ``num_reads`` is the drop row.  Each stream
+    ships in chunks cut at copy boundaries (:func:`unpacked_chunks`), and
+    every chunk launches the pair-hit kernel once on a card.  int8 adds
+    wrap mod 256 (the original's uchar counters).  Updates ``sim`` in
+    place, on the current stream, and returns it.  ``timer`` (a
+    ``PhaseTimer``) gets the host's time in a ``pair_score`` phase.
+    """
+    if sim.dim() != 2 or sim.shape[1] != g_pad or sim.shape[0] <= num_reads:
+        raise ValueError(f"sim must be (rows > {num_reads}, {g_pad}), got "
+                         f"{tuple(sim.shape)}")
+    stats = {"chunks": {name: 0 for name in LAUNCHES}, "rows": 0,
+             "host_copies": 0}
+    ctx = timer.phase("pair_score") if timer else contextlib.nullcontext()
+    with ctx:
+        for chunk_p, chunk_f, window, cap, host, n_host in unpacked_chunks(
+                buckets, num_reads, g_pad):
+            _pair_chunk(sim, torch.from_numpy(chunk_p).to(sim.device),
+                        torch.from_numpy(chunk_f).to(sim.device), window,
+                        cap, host, num_reads * g_pad)
+            stats["chunks"][_KERNEL_FOR_CAP[cap]] += 1
+            stats["rows"] += len(chunk_p)
+            stats["host_copies"] += n_host
+    LAST_RUN.clear()
+    LAST_RUN.update(stats)
+    return sim

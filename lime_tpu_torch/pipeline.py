@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
@@ -112,11 +113,27 @@ def cluster_lcp(fasta_path: str, num_reads: int, num_genomes: int,
 # Step 2 — cluster scoring
 # ---------------------------------------------------------------------------
 
+def dump_sim(sim: np.ndarray) -> None:
+    """The full similarity matrix on stdout, as ``lime_tpu``'s
+    ``LIME_DUMP_SIM=1`` prints it: the runtime form of the original
+    tool's ``SMALL=1`` build (src/ClusterBWT_DA.cpp:672-681), an
+    inspection aid for tiny runs.  ``sim`` is the wrapped uint8 (uint32
+    when wide) matrix either executor returns: never an int8 view, whose
+    values would print negative."""
+    w = sys.stdout.write
+    w("***FINAL***\n")
+    for row in np.asarray(sim):
+        w("\t".join(str(int(v)) for v in row))
+        w("\t\n")
+    w("***********\n")
+
+
 def cluster_bwt(fasta_path: str, read_len: int,
                 config: LimeConfig = DEFAULT_CONFIG, device="cuda") -> str:
     """Score clusters; write ``.res.bin``/``.res.pos`` (or ``.res.txt``).
 
-    Returns the ``.res`` prefix path.
+    With ``LIME_DUMP_SIM=1`` the scored matrix also goes to stdout
+    (:func:`dump_sim`).  Returns the ``.res`` prefix path.
     """
     if config.executor == "tpu":
         device = resolve_device(device)
@@ -153,6 +170,8 @@ def cluster_bwt(fasta_path: str, read_len: int,
                 meta.num_reads, meta.num_genomes, SYMBOL_RANK_LUT,
                 _DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS,
                 wide=config.wide_sim, threads=config.threads)
+    if os.environ.get("LIME_DUMP_SIM") == "1":
+        dump_sim(sim)
     with timer.phase("write"):
         norm_rows = normalize_scores(sim, read_len, meta.alpha)
         res_prefix = fasta_path + ".res"

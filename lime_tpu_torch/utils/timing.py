@@ -5,15 +5,22 @@
 :func:`device_memory_stats` reads torch's CUDA allocator in place of the
 original's jax device statistics.  :func:`event_ms` and :func:`graph_ms`
 time device work with CUDA events, per call or as CUDA-graph replays.
+:func:`read_trace` and :func:`trace_summary` read the ``torch.profiler``
+trace that ``LIME_PROFILE_DIR`` writes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
+import gzip
+import json
 import logging
+import os
+import re
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -126,3 +133,67 @@ def graph_ms(calls, repeat: int = 10) -> float:
     ms = event_ms(graph.replay) / repeat
     del graph
     return ms
+
+
+#: chrome-trace categories of device activity in a torch.profiler trace
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def read_trace(prof_dir: str) -> Tuple[str, List[dict]]:
+    """``(path, events)`` of the one trace that
+    ``torch.profiler.tensorboard_trace_handler`` wrote into ``prof_dir``
+    (``*.pt.trace.json``, or ``.json.gz``); raises unless there is
+    exactly one."""
+    files = sorted(glob.glob(os.path.join(prof_dir, "*.pt.trace.json*")))
+    if len(files) != 1:
+        raise RuntimeError(f"expected one trace in {prof_dir}, found "
+                           f"{files}")
+    opener = gzip.open if files[0].endswith(".gz") else open
+    with opener(files[0], "rt") as f:
+        return files[0], json.load(f)["traceEvents"]
+
+
+def trace_summary(events: List[dict]) -> dict:
+    """What a trace says of the device.
+
+    ``window_us``: from the first to the last complete event of any kind;
+    ``busy_us``: the union of the kernel and copy intervals, and
+    ``busy_share`` its share of the window; ``kernels``: per kernel name,
+    ``[launches, summed device us]``.
+    """
+    lo, hi = float("inf"), float("-inf")
+    kernels: Dict[str, list] = {}
+    spans = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        ts, dur = float(e["ts"]), float(e.get("dur", 0))
+        lo, hi = min(lo, ts), max(hi, ts + dur)
+        if e.get("cat") in DEVICE_CATEGORIES:
+            spans.append((ts, ts + dur))
+            if e["cat"] == "kernel":
+                k = kernels.setdefault(e["name"], [0, 0.0])
+                k[0] += 1
+                k[1] += dur
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = max(hi - lo, 0.0)
+    return {"window_us": window, "busy_us": busy,
+            "busy_share": busy / window if window > 0 else 0.0,
+            "kernels": kernels}
+
+
+def pair_kernel_launches(kernels: Dict[str, list]) -> Dict[int, int]:
+    """Launches of ``pair_hits_count_kernel<CAP>`` per cap among
+    :func:`trace_summary`'s kernels (names demangled or mangled)."""
+    out: Dict[int, int] = {}
+    for name, (count, _) in kernels.items():
+        if "pair_hits_count_kernel" not in name:
+            continue
+        m = re.search(r"pair_hits_count_kernel(?:<|ILi)(\d+)", name)
+        cap = int(m.group(1)) if m else -1
+        out[cap] = out.get(cap, 0) + count
+    return out

@@ -10,6 +10,8 @@ without it, where the suite's conftest (which imports jax) is left out:
         tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -23,8 +25,12 @@ from lime_tpu_torch.ops import classify_torch as ct
 from lime_tpu_torch.ops import fused_pipeline
 from lime_tpu_torch.ops import pair_kernels as pk
 from lime_tpu_torch.ops import pair_score as tps
-from lime_tpu_torch.ops.dense_score import _dense_chunk, _dense_chunk_offset
+from lime_tpu_torch.ops.dense_score import (_dense_chunk, _dense_chunk_offset,
+                                            dense_score_into)
 from lime_tpu_torch.synth_big import make_big_dataset
+from lime_tpu_torch.utils.memory import MemoryProfiler, memory_report
+from lime_tpu_torch.utils.timing import (pair_kernel_launches, read_trace,
+                                         trace_summary)
 
 from .synth import make_dataset
 from .test_torch_selfcontained import ensure_reference_native
@@ -782,3 +788,105 @@ def test_gloo_int8_reductions_wrap_on_cuda(cuda, tmp_path):
     for o in outs:
         assert o["all_reduce"] == [-55] * 8
         assert o["reduce_scatter"] == [-55] * 8
+
+
+# ---------------------------------------------------------------------------
+# The one-byte-per-row pair path, dense_score_into, the profiler trace and
+# the memory profiler
+# ---------------------------------------------------------------------------
+
+def _random_index(rng, n, num_reads, num_genomes, symbols=b"ACGT"):
+    """Random (lcp, da, ebwt) with plausible alpha-runs (alpha 16): the
+    inputs of tests/test_pair_score.py's ``_random_index``, which this
+    jax-free file cannot import."""
+    lcp = rng.integers(0, 2 * 16, n).astype(np.uint32)
+    for s in rng.choice(n - 40, n // 40, replace=False):
+        w = rng.integers(2, 30)
+        lcp[s:s + w] = rng.integers(16, 30)
+    da = np.where(rng.random(n) < 0.6,
+                  rng.integers(0, num_reads, n),
+                  rng.integers(num_reads, num_reads + num_genomes, n)
+                  ).astype(np.uint32)
+    syms = np.frombuffer(symbols, np.uint8)
+    return lcp, da, syms[rng.integers(0, len(syms), n)].copy()
+
+
+@pytest.mark.parametrize("kind,wide", [("deep", False), ("deep", True),
+                                       ("terminators", False)])
+def test_unpacked_pair_score_cuda_matches_cpu(cuda, deep, kind, wide):
+    """``pair_score_into`` on the card (reorder, re-encode, the pair-hit
+    kernel once per chunk) equals the CPU plane; the terminator case
+    routes its copies holding ``'\\0'`` (rank 15) to the host."""
+    if kind == "deep":
+        col = deep.collections[0]
+        lcp, da, ebwt = open_lcp(col), open_da(col), open_ebwt(col)
+        R, G = deep.num_reads, deep.num_genomes
+    else:
+        lcp, da, ebwt = _random_index(np.random.default_rng(31), 20000,
+                                      100, 20, symbols=b"ACGT$\x00")
+        R, G = 100, 20
+    g_pad = host._g_pad_for(G)
+    buckets = native.plan_pairs(lcp, da, ebwt, R, 16, g_pad, SYMBOL_RANK_LUT,
+                                host._DEGENERATE_BYTE.astype(np.uint8))[0]
+    planes, runs = [], []
+    for dev in (CPU, cuda):
+        pk.reset_launches()
+        sim = torch.zeros((R + 1, g_pad), device=dev,
+                          dtype=torch.int32 if wide else torch.int8)
+        tps.pair_score_into(sim, buckets, R, g_pad)
+        planes.append(sim.cpu().numpy()[:R])
+        runs.append(dict(tps.LAST_RUN))
+    assert runs[0] == runs[1]
+    assert dict(pk.LAUNCHES) == runs[1]["chunks"]
+    assert sum(runs[1]["chunks"].values()) >= len(buckets)
+    assert (runs[1]["host_copies"] > 0) == (kind == "terminators")
+    assert np.any(planes[0]) and np.array_equal(planes[1], planes[0])
+
+
+def test_dense_score_into_cuda_matches_cpu(cuda, conserved):
+    ds = conserved
+    out = _plan(ds, dense_min=4)
+    da, ebwt = open_da(ds.collections[0]), open_ebwt(ds.collections[0])
+    g_pad = host._g_pad_for(ds.num_genomes)
+    planes, lefts = [], []
+    for dev in (CPU, cuda):
+        sim = torch.zeros((host._r_pad_for(ds.num_reads), g_pad),
+                          dtype=torch.int8, device=dev)
+        _, left_s, left_l = dense_score_into(sim, out[4], out[5], da, ebwt,
+                                             ds.num_reads, ds.num_genomes,
+                                             g_pad)
+        planes.append(sim.cpu().numpy()[:ds.num_reads])
+        lefts.append((left_s, left_l))
+    assert np.any(planes[0]) and np.array_equal(planes[1], planes[0])
+    for a, b in zip(*lefts):
+        assert np.array_equal(a, b)
+
+
+def test_profile_trace_counts_the_pair_kernel(cuda, deep, tmp_path,
+                                              monkeypatch):
+    """``LIME_PROFILE_DIR`` on the card: the CSV is unchanged and the
+    trace holds the pair-hit kernel exactly as often as the launch
+    counts say, per cap."""
+    args = (deep.num_reads, deep.num_genomes, deep.lineage_path,
+            deep.read_len, FUSED)
+    plain, traced = str(tmp_path / "plain.csv"), str(tmp_path / "traced.csv")
+    run_paired(deep.collections, plain, *args, device=cuda)
+    monkeypatch.setenv("LIME_PROFILE_DIR", str(tmp_path / "trace"))
+    pk.reset_launches()
+    run_paired(deep.collections, traced, *args, device=cuda)
+    assert _read(traced) == _read(plain)
+    summary = trace_summary(read_trace(str(tmp_path / "trace"))[1])
+    want = {cap: pk.LAUNCHES[name]
+            for cap, name in pk._KERNEL_FOR_CAP.items() if pk.LAUNCHES[name]}
+    assert want and pair_kernel_launches(summary["kernels"]) == want
+    assert 0 < summary["busy_share"] <= 1
+
+
+def test_memory_profiler_reads_device_memory(cuda):
+    with MemoryProfiler(interval=0.01, track_hbm=True) as prof:
+        x = torch.ones(64 << 20, dtype=torch.uint8, device=cuda)
+        time.sleep(0.05)
+    assert max(s[2] for s in prof.series()) >= 64 << 20
+    assert "hbm peak" in prof.report()
+    assert "cuda:0 hbm=" in memory_report()
+    del x

@@ -105,7 +105,7 @@ def test_port_imports_nothing_of_jax_lime_tpu_or_tests():
             "index/torch_builder.py", "formats/fasta.py", "formats/gesa.py",
             "utils/filter_fasta.py", "parallel/mesh.py",
             "parallel/multihost.py", "parallel/sharded.py",
-            "parallel/dryrun.py", "synth.py"} <= scanned
+            "parallel/dryrun.py", "synth.py", "utils/memory.py"} <= scanned
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -120,6 +120,26 @@ def test_port_imports_nothing_of_jax_lime_tpu_or_tests():
                     for n in names
                     if n.split(".")[0] in ("jax", "lime_tpu", "tests")]
     assert not bad
+
+
+def test_package_reexports_match():
+    """``formats`` re-exports ``lime_tpu.formats``' names, and ``ops``
+    ``normalize_scores`` and ``classify_reads``, from the port's own
+    modules."""
+    import lime_tpu.formats as jformats
+    import lime_tpu_torch.formats as formats
+    from lime_tpu_torch import ops
+    from lime_tpu_torch.ops import classify_ops, scoring
+
+    public = {n for n in dir(jformats) if not n.startswith("_")
+              and not isinstance(getattr(jformats, n), type(jformats))}
+    assert public <= set(dir(formats))
+    for n in public:
+        assert getattr(formats, n).__module__.startswith("lime_tpu_torch.")
+    assert ops.normalize_scores is scoring.normalize_scores
+    assert ops.classify_reads is classify_ops.classify_reads
+    with pytest.raises(AttributeError):
+        ops.find_clusters
 
 
 def test_native_source_is_byte_identical():
