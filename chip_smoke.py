@@ -104,6 +104,24 @@ code is non-zero:
 17. dump_sim: ``LIME_DUMP_SIM=1`` on a 40-pair dataset (read length 60,
    genomes of 2,000 and 1,500, seed 13): ``cluster_bwt`` with K3 on the
    card prints the host executor's dump byte for byte, K3 launched once.
+18. no_native: the port as if its native library had failed to build
+   (``native.available()`` False and every binding raising, restored
+   afterwards), on the paper-shape dataset: K3 on each collection's
+   numpy-planned stream (``_plan_python``: every mixed cluster of at most
+   255 rows without an IUPAC-degenerate symbol, genome-dense ones
+   included), exact against the plain version on the 1F stream's first
+   positions, with the stream's runs by length, its window, and K3's
+   time beside the bytes bound; then ``run_paired(LimeConfig(fused=True))``
+   (the banded engine on that plan, the numpy rescue, the Python CSV
+   writer: K3 once per collection, the pair-hit kernel never) and
+   ``run_paired(LimeConfig())`` (``find_clusters``, K3, the numpy
+   rescue), each byte-identical with ``planner == "numpy"``; then the
+   oracle on the 1F collection of ``[preprocess]``'s dataset (cut from
+   the paper shape's pairs to ``--preprocess-pairs``, the cut printed):
+   the numpy ``score_clusters`` plane equal, cell for cell, to
+   ``native.score_clusters_native``'s and to the port's K3 plane
+   (``score_clusters_tpu`` without the library).  Every other phase's
+   run must report ``planner == "native"``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Nothing of jax or ``lime_tpu`` is
@@ -154,16 +172,20 @@ from lime_tpu_torch.constants import (  # noqa: E402
 from lime_tpu_torch.ops.dense_score import dense_score_into  # noqa: E402
 from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
     _classify_program_planes, _unpack_triplet, alloc_planes)
-from lime_tpu_torch.ops.fused_pass import staged_stream  # noqa: E402
+from lime_tpu_torch.ops.cluster_scan import find_clusters  # noqa: E402
+from lime_tpu_torch.ops.fused_pass import (  # noqa: E402
+    score_clusters_tpu, staged_stream)
+from lime_tpu_torch.ops.scoring import score_clusters  # noqa: E402
 from lime_tpu_torch.parallel import make_mesh  # noqa: E402
 from lime_tpu_torch.parallel import sharded  # noqa: E402
 from lime_tpu_torch.parallel.dryrun import free_port, spawn_ranks  # noqa: E402
+from lime_tpu_torch import synth_big  # noqa: E402
 from lime_tpu_torch.synth_big import (  # noqa: E402
     PAPER_GENOME_LEN, PAPER_GENOMES, PAPER_READ_LEN, compute_truth,
     paper_1f_sequences, paper_dataset, paper_sequences)
 from lime_tpu_torch.synth import make_dataset  # noqa: E402
 from lime_tpu_torch.utils.memory import (  # noqa: E402
-    MemoryProfiler, memory_report)
+    MemoryProfiler, host_memory_stats, memory_report)
 from lime_tpu_torch.utils.timing import (  # noqa: E402
     event_ms, graph_ms, pair_kernel_launches, read_trace, trace_summary)
 
@@ -395,6 +417,12 @@ def dataset(pairs: int):
     log(f"[e2e] dataset {'built' if built else 'reused'}: {pairs} pairs x "
         f"{NUM_GENOMES} genomes in {time.perf_counter() - t0:.1f} s "
         f"({ds.root})")
+    if built:
+        b = synth_big.LAST_BUILD
+        log(f"[e2e] index builds: {b['workers']} at once, each needing "
+            f"~{b['need_bytes']} B of the {b['free_bytes']} B of host RAM "
+            f"free before them; peak host RSS "
+            f"{host_memory_stats()['peak_rss_bytes']} B after them")
     return ds
 
 
@@ -402,10 +430,13 @@ def dataset(pairs: int):
 WALLS = {}
 
 
-def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
+def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters,
+          planner: str = "native"):
     """Run ``run_paired`` on ``dev`` with every launch count set to 0
-    just before; return (launches, CSV bytes) after checking the CSV
-    byte-identical to ``ref_csv``."""
+    just before; return (launches, CSV path) after checking the CSV
+    byte-identical to ``ref_csv`` and that ``planner`` planned the run
+    (the C++ planner everywhere but ``[no_native]``: a failed native
+    build cannot pass on the numpy path unseen)."""
     out_csv = os.path.join(ds.root, f"torch_{label}.csv")
     shape = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len, cfg)
     cuda = dev.type == "cuda"
@@ -432,8 +463,12 @@ def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters):
         extra = "; " + "; ".join(
             f"{st}: " + " ".join(f"{k}={v:.3f}s" for k, v in ph.items())
             for st, ph in stats["stages"].items())
+    if stats["planner"] != planner:
+        raise AssertionError(f"[{label}] planner {stats['planner']}, "
+                             f"{planner} expected")
     log(f"[{label}] run_paired(device='{dev}'): {wall:.3f} s wall = "
-        f"{ds.num_reads / wall:.0f} reads/s; phases: {phases}; peak "
+        f"{ds.num_reads / wall:.0f} reads/s; planner {planner}; "
+        f"phases: {phases}; peak "
         f"device memory {peak} B{extra}; launches {launches}; "
         f"C={summary.classified} H={summary.higher} A={summary.ambiguous} "
         f"U={summary.unclassified} ({card})")
@@ -964,9 +999,10 @@ def phase_sharded(ds, ref_csv: str, card: str, dev: torch.device) -> dict:
                       and pair == want)
                 what = (f"pair-kernel launches {pair} = planned chunks per "
                         f"bucket {st['chunks_per_bucket']}")
-            if cuda and not ok:
+            if (cuda and not ok) or st["planner"] != "native":
                 raise AssertionError(f"[sharded] {label}: launches "
-                                     f"{launches}; {what}")
+                                     f"{launches}; {what}; planner "
+                                     f"{st['planner']}")
             with open(ref_csv, "rb") as a, open(out_csv, "rb") as b:
                 if a.read() != b.read():
                     raise AssertionError(f"[sharded] {label} engine's CSV "
@@ -1033,11 +1069,13 @@ def phase_sharded_ranks(card: str, dev: torch.device,
             per_rank = [r["engines"][engine]["launches"] for r in res]
             names = ["banded"] if engine == "banded" else list(CAP_OF)
             counts = [sum(lc[k] for k in names) for lc in per_rank]
-            if dev.type == "cuda" and (
+            planners = {r["engines"][engine]["planner"] for r in res}
+            if planners != {"native"} or dev.type == "cuda" and (
                     not all(counts)
                     or engine == "banded" and counts != [4] * world):
                 raise AssertionError(f"[sharded_ranks] {engine} engine: "
-                                     f"launches per rank {per_rank}")
+                                     f"launches per rank {per_rank}, "
+                                     f"planners {planners}")
             for lc in per_rank:
                 for name in REPLACES:
                     total[name] += lc[name]
@@ -1240,12 +1278,186 @@ def phase_dump_sim(card: str, dev: torch.device) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def without_native():
+    """The port as if its native library had failed to build:
+    ``native.available()`` False and every binding raising (so a routing
+    site that called the library without asking would fail here), only
+    the numpy fallbacks left; the loaded library restored afterwards."""
+    saved = native._load(), native.LOAD_ERROR
+    native._lib = None
+    native.LOAD_ERROR = "set aside by chip_smoke.py [no_native]"
+    try:
+        yield
+    finally:
+        native._lib, native.LOAD_ERROR = saved
+
+
+def _no_native_streams(ds, card: str, dev: torch.device) -> dict:
+    """K3 on each collection's numpy-planned stream, the stream the fused
+    run without the library hands it: the 1F stream's first positions
+    exact against the plain version, then each whole stream timed (per
+    call and in a graph) into an int8 plane beside its bytes bound (5 B
+    per position, 2 B per touched int8 cell, as ``[banded]``'s)."""
+    cfg = LimeConfig(fused=True)
+    R, G = ds.num_reads, ds.num_genomes
+    g_pad = fused_pipeline._g_pad_for(G)
+    acc = torch.zeros((R + 1, g_pad), dtype=torch.int32, device=dev)
+    plane = torch.zeros((fused_pipeline._r_pad_for(R), g_pad),
+                        dtype=torch.int8, device=dev)
+    out = {"streams": 0, "positions": 0, "kept": 0, "ms": 0.0,
+           "graph_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0}
+    for i, fasta in enumerate(ds.collections):
+        t0 = time.perf_counter()
+        with without_native():
+            packed, doc, nc, window, bad_s, bad_l = fused_pipeline.plan_banded(
+                open_lcp(fasta), open_da(fasta), open_ebwt(fasta), R, G,
+                cfg)[:6]
+        t_plan = time.perf_counter() - t0
+        codes_h = fused_pipeline.banded_codes(packed)
+        doc_h = fused_pipeline._doc_i32(doc)
+        kept = int(np.count_nonzero(doc_h != R + G))
+        log(f"[no_native] {os.path.basename(fasta)} numpy plan in "
+            f"{t_plan:.3f} s: {kept} kept positions in a stream of "
+            f"{len(doc_h)} (pads to 2^20), window {window}; rescued "
+            f"{len(bad_s)} clusters, {int(np.sum(bad_l))} positions; runs: "
+            f"{run_stats(codes_h, doc_h, R, g_pad, window)}")
+        codes = torch.from_numpy(codes_h).to(dev)
+        docs = torch.from_numpy(doc_h).to(dev)
+        del packed, doc, codes_h, doc_h
+        n = codes.shape[0]
+        if i == 0:
+            # K3 against its plain version on the stream's first positions
+            m = 1 << 20
+            got = torch.zeros((R + 1, g_pad), dtype=torch.int32, device=dev)
+            bk.banded_sim_into(got, codes[:m], docs[:m], window, R)
+            bk.banded_sim_plain(acc, codes[:m], docs[:m], window, R)
+            err = int((got - acc).abs().max().item())
+            if err:
+                raise AssertionError(f"[no_native] K3 != plain on the 1F "
+                                     f"stream (max abs err {err})")
+            out["max_abs_err"] = err
+            log(f"[no_native] K3 exact against the plain version on the "
+                f"first {m} positions of the 1F stream "
+                f"({int(acc.sum().item())} pair counts)")
+            del got
+        acc.zero_()
+        bk.banded_sim_into(acc, codes, docs, window, R)
+        pairs = int(acc.sum().item())
+        touched = int(torch.count_nonzero(acc).item())
+        bound = bytes_bound_ms(5 * n + 2 * touched)
+
+        def call():
+            bk.banded_sim_into(plane, codes, docs, window, R)
+
+        ms, g_ms = event_ms(call), graph_ms([call])
+        out["streams"] += 1
+        out["positions"] += n
+        out["kept"] += kept
+        out["ms"] += ms
+        out["graph_ms"] += g_ms
+        out["bound_ms"] += bound
+        log(f"[no_native] K3 on the {os.path.basename(fasta)} numpy-planned "
+            f"stream: {n} positions, window {window}, {pairs} pair counts, "
+            f"{touched} cells, int8 plane: kernel {ms:.4f} ms per call, "
+            f"{g_ms:.4f} ms in a graph ({share(bound, g_ms)} of the "
+            f"{bound:.4f} ms bound) ({card})")
+        del codes, docs
+    del acc, plane
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _no_native_oracle(ods, card: str, dev: torch.device) -> dict:
+    """The numpy exact scorer as an oracle on the 1F collection of
+    ``ods``: its plane against the native scorer's and the port's K3
+    plane (K3 and the numpy rescue, ``score_clusters_tpu`` without the
+    library), cell for cell; returns each kernel's launches in the K3
+    plane's run."""
+    fasta = ods.collections[0]
+    lcp, da, ebwt = open_lcp(fasta), open_da(fasta), open_ebwt(fasta)
+    R, G = ods.num_reads, ods.num_genomes
+    cfg = LimeConfig()
+    t0 = time.perf_counter()
+    starts, lens = native.plan_clusters(lcp, da, R, cfg.alpha, threads=0)
+    want = native.score_clusters_native(
+        starts, lens, da, ebwt, R, G, SYMBOL_RANK_LUT,
+        host._DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS, threads=0)
+    t_native = time.perf_counter() - t0
+    with without_native():
+        t0 = time.perf_counter()
+        np_starts, np_lens = find_clusters(np.asarray(lcp), np.asarray(da),
+                                           R, cfg.alpha)
+        got = score_clusters(np_starts, np_lens, da, ebwt, R, G, cfg)
+        t_numpy = time.perf_counter() - t0
+        pk.reset_launches()
+        bk.reset_launches()
+        t0 = time.perf_counter()
+        k3 = score_clusters_tpu(np_starts, np_lens, da, ebwt, R, G, cfg,
+                                alpha=cfg.alpha, lcp=lcp, device=dev)
+        t_k3 = time.perf_counter() - t0
+        launches = {**pk.LAUNCHES, **bk.LAUNCHES}
+    same_clusters = (np.array_equal(starts, np_starts)
+                     and np.array_equal(lens, np_lens))
+    for name, plane in (("native", want), ("K3", k3)):
+        if not np.array_equal(got, plane):
+            bad = np.argwhere(got != plane)
+            raise AssertionError(f"[no_native] the numpy plane differs from "
+                                 f"the {name} plane in {len(bad)} cells, "
+                                 f"first {bad[:3].tolist()}")
+    if not same_clusters or (dev.type == "cuda" and launches["banded"] != 1):
+        raise AssertionError(f"[no_native] oracle: clusters equal "
+                             f"{same_clusters}, launches {launches}")
+    cut = "" if R == 1_000_000 else f" (cut from 1,000,000 pairs to {R})"
+    log(f"[no_native] oracle on {os.path.basename(fasta)} of {R} pairs x "
+        f"{G} genomes{cut}: {len(starts)} clusters, {int(lens.sum())} "
+        f"positions, {int(np.count_nonzero(got))} nonzero cells; the numpy "
+        f"plane (find_clusters + score_clusters, {t_numpy:.3f} s) equals "
+        f"the native scorer's (plan_clusters + score_clusters_native, "
+        f"{t_native:.3f} s) and the port's K3 plane without the library "
+        f"(score_clusters_tpu, K3 launches {launches['banded']}, "
+        f"{t_k3:.3f} s) cell for cell ({card})")
+    return launches
+
+
+def phase_no_native(ds, ref_csv: str, card: str, dev: torch.device,
+                    preprocess_pairs: int) -> tuple:
+    """The no-native path at the paper shape: K3 on the numpy plan's
+    streams, the fused and staged runs without the library, and the
+    numpy oracle on ``[preprocess]``'s dataset; returns (each kernel's launches per run, K3's times on
+    the numpy-planned streams)."""
+    streams = _no_native_streams(ds, card, dev)
+    out = {name: {} for name in REPLACES}
+    for label, cfg in (("fused", LimeConfig(fused=True)),
+                       ("staged", LimeConfig())):
+        with without_native():
+            launches, _ = drive(f"no_native_{label}", ds, cfg, ref_csv, card,
+                                dev, [pk, bk], planner="numpy")
+        pair = {name: launches[name] for name in CAP_OF}
+        engine = fused_pipeline.LAST_RUN["engine"] if cfg.fused else "staged"
+        if (engine not in ("banded", "staged") or any(pair.values())
+                or dev.type == "cuda"
+                and launches["banded"] != len(ds.collections)):
+            raise AssertionError(f"[no_native_{label}] engine {engine}: "
+                                 f"launches {launches} (K3 once per "
+                                 f"collection, no pair-hit kernel)")
+        for name in REPLACES:
+            out[name][label] = launches[name]
+    ods = paper_dataset(os.path.join(ROOT, "build"), preprocess_pairs)[0]
+    oracle = _no_native_oracle(ods, card, dev)
+    for name in REPLACES:
+        out[name]["oracle"] = oracle[name]
+    return out, streams
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=1_000_000,
                     help="read pairs of the end-to-end dataset")
     ap.add_argument("--preprocess-pairs", type=int, default=50_000,
-                    help="read pairs of the [preprocess] phase's dataset")
+                    help="read pairs of the dataset of the [preprocess] "
+                         "phase and of [no_native]'s numpy oracle")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     times = {}
@@ -1289,6 +1501,15 @@ def main(argv=None) -> int:
     profile = timed("profile", phase_profile, ds, ref_csv, smi, dev)
     unpacked = timed("unpacked", phase_unpacked, ds, smi, dev)
     dump_sim = timed("dump_sim", phase_dump_sim, smi, dev)
+    no_native, nn_streams = timed("no_native", phase_no_native, ds, ref_csv,
+                                  smi, dev, args.preprocess_pairs)
+    records["banded"]["max_abs_err"] = max(records["banded"]["max_abs_err"],
+                                           nn_streams["max_abs_err"])
+    records["banded"].update({
+        "no_native_path_ms": round(nn_streams["ms"], 4),
+        "no_native_path_graph_ms": round(nn_streams["graph_ms"], 4),
+        "no_native_path_bound_ms": round(nn_streams["bound_ms"], 6),
+        "no_native_path_positions": nn_streams["positions"]})
     kernels = [{"name": k, "route": "cuda",
                 "source": f"lime_tpu_torch/csrc/{SOURCE[k]}.cu",
                 "replaces": REPLACES[k], "launches": launches[k],
@@ -1299,7 +1520,8 @@ def main(argv=None) -> int:
                                           "sharded_ranks": on_ranks[k]},
                 "profile_path_launches": profile[k],
                 "unpacked_path_launches": unpacked[k],
-                "dump_sim_path_launches": dump_sim[k]}
+                "dump_sim_path_launches": dump_sim[k],
+                "no_native_path_launches": no_native[k]}
                for k in REPLACES]
     log(f"[memory] {memory_report()}".replace("\n", "; "))
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"

@@ -8,7 +8,9 @@ kernels rewritten as CUDA C++ for Hopper (``csrc/pair_hits.cu``,
 ``csrc/banded_pairs.cu``).  The framework-free host layer — the C++
 planners and scorer (``native/``), the index formats, the config, the
 numpy cascade — is the port's own copy of ``lime_tpu``'s: nothing here
-imports jax or ``lime_tpu``.
+imports jax or ``lime_tpu``.  Where the C++ library cannot be built,
+the port takes ``lime_tpu``'s numpy fallbacks, with K3 still on the
+device (``native.available()``).
 
 Quick start::
 

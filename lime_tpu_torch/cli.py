@@ -24,6 +24,9 @@ the CSV::
         1F 1RC 2F 2RC out.csv NUM_READS NUM_GENOMES LineageFile.csv \\
         READ_LEN [--engine pair|banded] [--mesh SPxDP] --device cuda
 
+Without the native library ``--engine pair`` warns and runs the banded
+engine, as ``lime-tpu run-sharded`` does.
+
 The index surfaces run on the host and take no ``--device``::
 
     lime-tpu-torch preprocess READS1 GENOMES [--reads2 READS2] \\
@@ -283,6 +286,7 @@ def _dispatch(args) -> int:
 def _run_sharded(args, cfg: LimeConfig) -> int:
     """``run-sharded``: start the process group (a no-op for one process),
     build the mesh and run the chosen engine on every rank."""
+    from . import native
     from .parallel import (init_distributed, make_mesh, run_sharded,
                            run_sharded_pairs)
 
@@ -292,7 +296,12 @@ def _run_sharded(args, cfg: LimeConfig) -> int:
         mesh = make_mesh(shape[0] * shape[1], shape=shape)
     else:
         mesh = make_mesh(args.devices)
-    runner = run_sharded_pairs if args.engine == "pair" else run_sharded
+    engine = args.engine
+    if engine == "pair" and not native.available():
+        print("warning: native runtime unavailable — falling back "
+              "to the banded SPMD engine", file=sys.stderr)
+        engine = "banded"
+    runner = run_sharded_pairs if engine == "pair" else run_sharded
     res = runner(args.collections, args.output, args.num_reads,
                  args.num_genomes, args.lineage, args.read_len, cfg,
                  mesh=mesh, device=args.device)

@@ -22,8 +22,10 @@ the reference and stays unchanged, so the port keeps these copies and
 ``tests/test_torch_staged.py`` pins the last three rows,
 ``tests/test_torch_blocked.py`` pins ``pair_rows_local`` and
 ``tests/test_torch_sharded.py`` pins ``_rescue``.  Where an
-original branches on whether the native library loaded, the copy calls
-the library: the port's loader raises rather than falls back.
+original branches on whether the native library loaded
+(``native.available()``), so does the copy: ``_score_small_dense`` takes
+the numpy exact scorer, ``_rescue`` the sparse branch and
+``_dense_min_for`` returns 0 (``tests/test_torch_no_native.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import numpy as np
 from . import native
 from .config import LimeConfig
 from .constants import IUPAC_WATERFALL_PAIRS, SYMBOL_RANK_LUT
-from .ops.scoring import _expand_positions
+from .ops.scoring import _expand_positions, score_clusters
 
 # bytes whose symbol rank is IUPAC-degenerate (4..14)
 _DEGENERATE_BYTE = np.zeros(256, dtype=bool)
@@ -242,12 +244,15 @@ _COO_POSITION_CAP = 1 << 20
 
 def _score_small_dense(starts, lens, da, ebwt, n_r, n_g,
                        config: LimeConfig) -> np.ndarray:
-    """Exact scores for a (small, remapped) cluster set."""
-    return native.score_clusters_native(
-        starts, lens, da, ebwt, n_r, n_g, SYMBOL_RANK_LUT,
-        _DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS,
-        wide=config.wide_sim,
-        threads=0 if ebwt is None or len(starts) > 64 else 1)
+    """Exact scores for a (small, remapped) cluster set — native or numpy."""
+    if native.available():
+        return native.score_clusters_native(
+            starts, lens, da, ebwt, n_r, n_g, SYMBOL_RANK_LUT,
+            _DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS,
+            wide=config.wide_sim,
+            threads=0 if ebwt is None or len(starts) > 64 else 1)
+    return score_clusters(starts, lens, da, ebwt, n_r, n_g,
+                          config.replace(wide_sim=True))
 
 
 def _rescue_sparse(bad_start, bad_len, da, ebwt, num_reads: int,
@@ -290,7 +295,8 @@ def _rescue(bad_start, bad_len, da, ebwt, num_reads: int, num_genomes: int,
     sends a large share of clusters to the host scorer.
     """
     total = int(np.asarray(bad_len, np.int64).sum())
-    if total <= _COO_POSITION_CAP and total < num_reads * num_genomes // 16:
+    if (total <= _COO_POSITION_CAP and total < num_reads * num_genomes // 16
+            ) or not native.available():
         return ("coo", *_rescue_sparse(bad_start, bad_len, da, ebwt,
                                        num_reads, num_genomes, config))
     mat = native.score_clusters_native(
@@ -342,7 +348,10 @@ def _dense_threshold_for(num_genomes: int, config: LimeConfig) -> int:
 
 def _dense_min_for(num_genomes: int, config: LimeConfig) -> int:
     """Genome-position threshold for the dense histogram-matmul routing
-    of the banded engine (0 disables it)."""
+    of the banded engine (0 disables it, as does a missing native
+    library: the dense path's planner is native)."""
+    if not native.available():
+        return 0
     if config.mxu_dense_min is not None:
         return config.mxu_dense_min
     return 0 if _g_pad_for(num_genomes) <= 256 else 16

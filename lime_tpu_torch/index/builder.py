@@ -146,8 +146,8 @@ def build_index(seqs: Sequence[bytes], engine: str = "numpy",
 
     ``engine``: 'numpy' (portable prefix doubling), 'native' (C++ SA-IS),
     'tpu' (prefix doubling with the sorts and the LCP descent on the torch
-    ``device``, default the GPU), or 'auto' (the native builder, whose
-    library raises if it cannot be built: nothing falls back to numpy).
+    ``device``, default the GPU), or 'auto' (native when a toolchain is
+    available, else numpy).
     ``device`` applies to 'tpu' only.  Collections that exceed available
     RAM raise MemoryError up front (see :func:`_check_build_memory`).
     """
@@ -157,7 +157,11 @@ def build_index(seqs: Sequence[bytes], engine: str = "numpy",
         return build_index_torch(seqs, device=device)
     if engine != "numpy":
         from .. import native
-        return native.build_index_native(list(seqs))
+        if native.available():
+            return native.build_index_native(list(seqs))
+        if engine == "native":
+            raise RuntimeError("native index builder unavailable "
+                               "(no C++ toolchain)")
     if not seqs:
         return (np.empty(0, DT_SYMBOL), np.empty(0, DT_LCP), np.empty(0, DT_DOC))
     ranks, docs, seq_start = _initial_ranks(seqs)

@@ -107,8 +107,10 @@ def build_index_files_external(fasta_path: str, seqs: Sequence[bytes],
 
     Bit-identical to :func:`lime_tpu_torch.index.builder.build_index_files`;
     returns the number of merge passes (1 when the whole collection fit
-    one block).  The native library raises if it cannot be built.
+    one block).
     """
+    if not native.available():
+        raise RuntimeError("external build requires the native runtime")
     lib = native._load()
     lens = [len(s) for s in seqs]
     _check_kasai_floor(sum(lens) + len(lens))

@@ -12,13 +12,23 @@ The library is built with g++ at first use into
 :func:`locked_build`: under an ``fcntl`` lock, into a pid-suffixed temp
 file renamed onto the library, with a stamp of the finished file beside
 it, so processes that start together never load a half-written library.
-A library that cannot be built or loaded raises; nothing falls back.
+
+:func:`available` says whether the library loaded, with ``lime_tpu``'s
+meaning: it is False only when building or loading failed.  The failure
+is cached (no rebuild is tried again in the process), its text kept in
+:data:`LOAD_ERROR` and logged once at WARNING.  The routing sites call
+``native.available()`` through this module's attribute and take
+``lime_tpu``'s numpy fallbacks when it is False (the numpy planner and
+cluster scan, the numpy exact scorer, the Python CSV writer); every
+binding here, and :func:`_load`, still raises for a caller that needs
+the library.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import logging
 import os
 import subprocess
 import threading
@@ -35,6 +45,9 @@ GXX_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: why building or loading the library failed (None until it has)
+LOAD_ERROR: Optional[str] = None
+_warned = False
 
 
 def _fingerprint(lib: str) -> str:
@@ -80,123 +93,154 @@ def locked_build(src: str, lib: str, rebuild: bool = False) -> None:
 
 
 def _load() -> ctypes.CDLL:
-    """The loaded library, built first if needed; raises if it cannot."""
-    global _lib
+    """The loaded library, built first if needed; raises if it cannot,
+    and again, without a rebuild, on every later call (the failure is
+    cached in :data:`LOAD_ERROR`)."""
+    global _lib, LOAD_ERROR
     with _lock:
         if _lib is not None:
             return _lib
-        locked_build(_SRC, _LIB)
-        lib = ctypes.CDLL(_LIB)
-        lib.lime_build_index.restype = ctypes.c_int64
-        lib.lime_build_index.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_plan.restype = ctypes.c_int64
-        lib.lime_plan.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_plan_pairs.restype = ctypes.c_int64
-        lib.lime_plan_pairs.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_plan_pairs_packed.restype = ctypes.c_int64
-        lib.lime_plan_pairs_packed.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_plan_dense.restype = ctypes.c_int64
-        lib.lime_plan_dense.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_score_clusters.restype = ctypes.c_int64
-        lib.lime_score_clusters.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64,
-        ]
-        lib.lime_format_csv.restype = ctypes.c_int64
-        lib.lime_format_csv.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.lime_build_index_block.restype = ctypes.c_int64
-        lib.lime_build_index_block.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.lime_merge_blocks.restype = ctypes.c_int64
-        lib.lime_merge_blocks.argtypes = [
-            ctypes.c_char_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
-        ]
-        lib.lime_kasai_files.restype = ctypes.c_int64
-        lib.lime_kasai_files.argtypes = [
-            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
-            ctypes.c_int64,
-        ]
-        lib.lime_plan_score_coo.restype = ctypes.c_int64
-        lib.lime_plan_score_coo.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_uint32,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.lime_coo_compact.restype = ctypes.c_int64
-        lib.lime_coo_compact.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        lib.lime_plan_clusters.restype = ctypes.c_int64
-        lib.lime_plan_clusters.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_uint32, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
-        _lib = lib
+        if LOAD_ERROR is not None:
+            raise RuntimeError(f"native library unavailable: {LOAD_ERROR}")
+        try:
+            _lib = _bind(_LIB)
+        except Exception as e:
+            LOAD_ERROR = f"{type(e).__name__}: {e}"
+            raise
         return _lib
+
+
+def available() -> bool:
+    """True when the library is built and loaded (building it on the
+    first call); False only when that failed.  The first False logs
+    :data:`LOAD_ERROR` at WARNING."""
+    global _warned
+    try:
+        _load()
+        return True
+    except Exception:
+        if not _warned:
+            _warned = True
+            logging.getLogger("lime_tpu_torch").warning(
+                "native library unavailable, numpy fallbacks in use: %s",
+                LOAD_ERROR)
+        return False
+
+
+def _bind(path: str) -> ctypes.CDLL:
+    """Build ``path`` from the source if needed, load it and declare its
+    entry points."""
+    locked_build(_SRC, path)
+    lib = ctypes.CDLL(path)
+    lib.lime_build_index.restype = ctypes.c_int64
+    lib.lime_build_index.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_plan.restype = ctypes.c_int64
+    lib.lime_plan.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_plan_pairs.restype = ctypes.c_int64
+    lib.lime_plan_pairs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_plan_pairs_packed.restype = ctypes.c_int64
+    lib.lime_plan_pairs_packed.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_plan_dense.restype = ctypes.c_int64
+    lib.lime_plan_dense.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_score_clusters.restype = ctypes.c_int64
+    lib.lime_score_clusters.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64,
+    ]
+    lib.lime_format_csv.restype = ctypes.c_int64
+    lib.lime_format_csv.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.lime_build_index_block.restype = ctypes.c_int64
+    lib.lime_build_index_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.lime_merge_blocks.restype = ctypes.c_int64
+    lib.lime_merge_blocks.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+    ]
+    lib.lime_kasai_files.restype = ctypes.c_int64
+    lib.lime_kasai_files.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_int64,
+    ]
+    lib.lime_plan_score_coo.restype = ctypes.c_int64
+    lib.lime_plan_score_coo.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_uint32,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.lime_coo_compact.restype = ctypes.c_int64
+    lib.lime_coo_compact.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.lime_plan_clusters.restype = ctypes.c_int64
+    lib.lime_plan_clusters.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_uint32, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    return lib
 
 
 def build_index_native(seqs: Sequence[bytes]

@@ -1,23 +1,25 @@
 """Operators of the port: the pair-hit and banded kernels, packed and
 one-byte-per-row pair scoring, dense histogram matmul, the classify
 program and the fused pipeline on the device; on the host, copies of
-``lime_tpu``'s scoring helpers, cluster metadata and numpy cascade.
+``lime_tpu``'s cluster scan, numpy exact scorer and numpy cascade.
 
-``normalize_scores`` and ``classify_reads`` are re-exported here, as
-``lime_tpu.ops`` does, and imported at first use: importing the package,
-which every ``ops.<module>`` import does, loads nothing else (no CUDA
-library either; the kernels build at their first launch), so
-``kernel_ab`` can load another checkout's kernel modules alone.
-``lime_tpu``'s numpy ``find_clusters`` and ``score_clusters`` are
-fallbacks for a missing native library, which the port does not have
-(its loader raises).
+``find_clusters``, ``normalize_scores``, ``score_clusters`` and
+``classify_reads`` are re-exported here, as ``lime_tpu.ops`` does, and
+imported at first use: importing the package, which every
+``ops.<module>`` import does, loads nothing else (no CUDA library either;
+the kernels build at their first launch), so ``kernel_ab`` can load
+another checkout's kernel modules alone.  The numpy ``find_clusters`` and
+``score_clusters`` are what the stages run when the native library is
+missing (``native.available()`` False), as in ``lime_tpu``.
 """
 
 import importlib
 
-__all__ = ["normalize_scores", "classify_reads"]
+__all__ = ["find_clusters", "normalize_scores", "score_clusters",
+           "classify_reads"]
 
-_EXPORTS = {"normalize_scores": "scoring", "classify_reads": "classify_ops"}
+_EXPORTS = {"find_clusters": "cluster_scan", "normalize_scores": "scoring",
+            "score_clusters": "scoring", "classify_reads": "classify_ops"}
 
 
 def __getattr__(name):

@@ -134,11 +134,11 @@ def score_clusters_tpu(p_start: np.ndarray, lens: np.ndarray,
     rebuilds the mask from the cluster list when lcp is absent.  Returns
     the ``(num_reads, num_refs)`` matrix in ``config.sim_dtype`` with the
     reference's counter semantics (u8 wraps mod 256).  Host-routed
-    clusters are scored exactly and unwrapped by the native scorer on a
-    remapped compact collection (``host._rescue_sparse`` with u32
-    counters: the same counts as ``lime_tpu.ops.scoring.score_clusters``
-    with ``wide_sim``) and added to the device accumulator before the
-    wrap.
+    clusters are scored exactly and unwrapped on a remapped compact
+    collection (``host._rescue_sparse`` with u32 counters: the native
+    scorer, or without the native library the numpy
+    ``ops.scoring.score_clusters`` with ``wide_sim``) and added to the
+    device accumulator before the wrap.
     """
     p_start = np.asarray(p_start, np.int64)
     lens = np.asarray(lens, np.int64)

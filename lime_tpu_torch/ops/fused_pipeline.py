@@ -17,6 +17,14 @@ released) scans the index once and routes every alpha-cluster:
   (or, past a size cap, a host plane whose nonzeros ship as one
   delta-COO chain scattered into the device plane).
 
+Without the native library (``native.available()`` False) the run takes
+``lime_tpu``'s fallback: the banded engine on :func:`_plan_python`'s
+numpy plan (every mixed cluster of at most 255 rows with no
+IUPAC-degenerate symbol in one K3 stream, genome-dense ones included;
+the rest to the numpy exact scorer as COO corrections), and no pair
+streams, dense matmul or host share.  ``LAST_RUN["planner"]`` says which
+planner ran.
+
 The host share.  ``host_frac`` (or ``LIME_HOST_FRAC``, which overrides
 it) hash-routes that share of the pair path's clusters to the exact host
 scorer at plan time (:func:`_host_split_for`; unset means none, the
@@ -227,9 +235,14 @@ def _budget(total: int | None, var: str, share: int = 1) -> int | None:
     return budget
 
 
+def _planner() -> str:
+    """Which planner a run takes: the C++ one, or the numpy fallback."""
+    return "native" if native.available() else "numpy"
+
+
 def _doc_i32(doc: np.ndarray) -> np.ndarray:
-    """The planner's u16 or u32 document ids as int32 (u32 by its bits;
-    ids stay below 2^31)."""
+    """The planner's u16, u32 or int32 document ids as int32 (u32 by its
+    bits; ids stay below 2^31)."""
     return doc.view(np.int32) if doc.dtype == np.uint32 else \
         doc.astype(np.int32)
 
@@ -238,13 +251,94 @@ def plan_banded(lcp, da, ebwt, num_reads: int, num_genomes: int,
                 config: LimeConfig):
     """The banded engine's plan of one collection: ``native.plan_native``
     with the routing thresholds ``config`` sets, its stream padded to
-    ``_BLOCK`` with pad document ``num_reads + num_genomes``."""
-    return native.plan_native(
-        lcp, da, ebwt, num_reads, config.alpha, SYMBOL_RANK_LUT,
-        _DEGENERATE_BYTE, (num_reads + num_genomes) < 0xFFFF,
-        pad_block=_BLOCK, pad_doc=num_reads + num_genomes,
-        g_dense=_dense_threshold_for(num_genomes, config),
-        dense_min=_dense_min_for(num_genomes, config))
+    ``_BLOCK`` with pad document ``num_reads + num_genomes``; without the
+    native library :func:`_plan_python`'s stream (``nc`` 1, no dense
+    lists), as ``lime_tpu``'s ``plan`` falls back.  Returns ``(packed,
+    doc, nc, window, bad_start, bad_len, dense_start, dense_len)``."""
+    use_u16 = (num_reads + num_genomes) < 0xFFFF
+    if native.available():
+        return native.plan_native(
+            lcp, da, ebwt, num_reads, config.alpha, SYMBOL_RANK_LUT,
+            _DEGENERATE_BYTE, use_u16, pad_block=_BLOCK,
+            pad_doc=num_reads + num_genomes,
+            g_dense=_dense_threshold_for(num_genomes, config),
+            dense_min=_dense_min_for(num_genomes, config))
+    # the numpy fallback has no fast host scorer, so only clusters the
+    # banded kernel cannot express route to the host
+    packed, doc, window, bad_start, bad_len = _plan_python(
+        lcp, da, ebwt, num_reads, num_genomes, config, use_u16)
+    empty = np.empty(0, np.int64)
+    return packed, doc, 1, window, bad_start, bad_len, empty, empty
+
+
+def _plan_python(lcp, da, ebwt, num_reads: int, num_genomes: int,
+                 config: LimeConfig, use_u16: bool):
+    """Vectorized numpy fallback planner (native C++ pass unavailable)."""
+    n = len(lcp)
+    m = np.asarray(lcp) >= config.alpha
+    m[0] = False
+    window = 1
+    bad_start = np.empty(0, np.int64)
+    bad_len = np.empty(0, np.int64)
+    d = np.diff(m.view(np.int8))
+    run_starts = np.flatnonzero(d == 1) + 1
+    run_ends = np.flatnonzero(d == -1) + 1
+    if m[-1]:
+        run_ends = np.append(run_ends, n)
+
+    gpos = np.empty(0, np.int64)
+    within0 = np.empty(0, bool)
+    if len(run_starts):
+        p_start = run_starts - 1  # cluster rows = run extended one left
+        lens = run_ends - p_start
+        # membership filter via a prefix-sum of the read-side indicator
+        da_arr = np.asarray(da)
+        cr = np.concatenate(
+            [[0], np.cumsum(da_arr < num_reads, dtype=np.int64)])
+        n_read_in = cr[p_start + lens] - cr[p_start]
+        mixed = (n_read_in > 0) & (n_read_in < lens)
+        p_start, lens = p_start[mixed], lens[mixed]
+        if len(p_start):
+            # clusters the banded kernel cannot express: longer than the
+            # 255 saturation bound, or containing IUPAC-degenerate
+            # symbols (the stateful leftover waterfall) — routed to the
+            # exact host rescue path
+            bad_c = lens > 255
+            if config.use_ebwt:
+                deg_pos = np.flatnonzero(
+                    _DEGENERATE_BYTE[np.asarray(ebwt)])
+                if len(deg_pos):
+                    cidx = np.searchsorted(p_start, deg_pos,
+                                           side="right") - 1
+                    inside = ((cidx >= 0)
+                              & (deg_pos < p_start[cidx] + lens[cidx]))
+                    bad_c[np.unique(cidx[inside])] = True
+            bad_idx = np.flatnonzero(bad_c)
+            if len(bad_idx):
+                bad_start = p_start[bad_idx]
+                bad_len = lens[bad_idx]
+            keep = ~bad_c
+            p_start, lens = p_start[keep], lens[keep]
+        if len(p_start):
+            window = int(lens.max())
+            total = int(lens.sum())
+            offs = np.concatenate([[0], np.cumsum(lens[:-1])])
+            within = (np.arange(total, dtype=np.int64)
+                      - np.repeat(offs, lens))
+            gpos = np.repeat(p_start, lens) + within
+            within0 = within == 0
+
+    nc = len(gpos)
+    n_pad = max(_BLOCK, -(-nc // _BLOCK) * _BLOCK)
+    sym_c = (SYMBOL_RANK_LUT[np.asarray(ebwt[gpos])] if config.use_ebwt
+             else np.zeros(nc, np.uint8))
+    mbit = np.logical_not(within0).astype(np.uint8) << _M_BIT
+    packed = np.pad(sym_c | mbit, (0, n_pad - nc))
+    # pad doc with an out-of-range id: never a read, never a genome
+    doc = np.pad(np.asarray(da[gpos]).astype(
+        np.uint16 if use_u16 else np.int32), (0, n_pad - nc),
+        constant_values=num_reads + num_genomes)
+    return packed, doc, window, bad_start, bad_len
 
 
 def banded_codes(packed):
@@ -405,8 +499,8 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
     g_pad = _g_pad_for(num_genomes)
     block = _classify_block_for(num_reads)
     wide = bool(config.wide_sim)
-    pair = (config.pair_stream is not False and num_reads <= (1 << 28)
-            and num_genomes <= (1 << 16))
+    pair = (config.pair_stream is not False and native.available()
+            and num_reads <= (1 << 28) and num_genomes <= (1 << 16))
     stack_bytes = F * r_pad * g_pad * (4 if wide else 1)
     free = _device_memory(device)
     if pair:
@@ -422,8 +516,8 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
             f"the banded engine's score planes need {stack_bytes} bytes, "
             f"over the {free} bytes {device} has free beyond the "
             f"{MEMORY_HEADROOM}-byte headroom; the banded engine has no "
-            "row-blocked mode (that mode scores pair streams: leave "
-            "pair_stream unset)")
+            "row-blocked mode (that mode scores pair streams, which need "
+            "the native library: with it, leave pair_stream unset)")
     # the host share exists only on the pair path, as in lime_tpu
     host_num = _host_split_for(config) if pair else 0
     all_host = host_num == 256 and not wide
@@ -494,8 +588,9 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
             if len(bad_start):
                 total = int(np.asarray(bad_len, np.int64).sum())
                 with timer.phase("host_score", nbytes=total * 5):
-                    if (total <= host._COO_POSITION_CAP
-                            and total < num_reads * num_genomes // 16):
+                    if ((total <= host._COO_POSITION_CAP
+                         and total < num_reads * num_genomes // 16)
+                            or not native.available()):
                         res = ("coo", *_rescue_sparse(
                             bad_start, bad_len, da, ebwt, num_reads,
                             num_genomes, config))
@@ -546,7 +641,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
     LAST_RUN.clear()
     LAST_RUN.update({"engine": ("all_host" if all_host else
                                 "pair" if pair else "banded"),
-                     "host_num": host_num,
+                     "planner": _planner(), "host_num": host_num,
                      "chunks_per_bucket": list(chunk_counts),
                      "banded_windows": banded_windows, **stats,
                      "memory": mem, "phases": dict(timer.phases)})
@@ -953,7 +1048,8 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
     mem = device_memory_stats(device)
     del buf, stack
     LAST_RUN.clear()
-    LAST_RUN.update({"engine": "blocked", "host_num": host_num, "B": B,
+    LAST_RUN.update({"engine": "blocked", "planner": _planner(),
+                     "host_num": host_num, "B": B,
                      "blocks": blocks, "n_pass": n_pass,
                      "chunks_per_bucket": list(chunk_counts),
                      "launches_per_bucket": launches,

@@ -47,8 +47,8 @@ from ..pipeline import run_paired
 from ..synth import SynthDataset, make_dataset
 from .mesh import Mesh, make_mesh
 from .multihost import init_distributed
-from .sharded import (banded_fused_step, pair_comm_model, run_sharded,
-                      run_sharded_pairs)
+from .sharded import (LAST_RUN, banded_fused_step, pair_comm_model,
+                      run_sharded, run_sharded_pairs)
 
 #: the dry run's dataset: ``MULTICHIP_r05.json``'s shape
 PAIRS, READ_LEN, GENOME_LENS, SEED, DEGENERATE_RATE = (
@@ -206,8 +206,9 @@ def dryrun_multichip(device="cuda", num_pairs: int = PAIRS,
     forced row-blocked mode (``LIME_HBM_BUDGET=1``) on its device, which
     must agree too.  A failed check raises on every rank.  Returns the
     mesh, the dataset's shape, the rescued clusters, and per engine its
-    wall, this rank's kernel launches (counted from 0 just before it) and
-    the assignment counts.
+    wall, this rank's kernel launches (counted from 0 just before it), the
+    assignment counts and the planner that ran (``"native"`` or
+    ``"numpy"``).
     """
     dev = resolve_device(device)
     mesh = mesh or make_mesh()
@@ -248,7 +249,8 @@ def dryrun_multichip(device="cuda", num_pairs: int = PAIRS,
             wall = time.perf_counter() - t0
             out["engines"][engine] = {"wall_s": wall,
                                       "launches": _launches(),
-                                      "counts": res.counts()}
+                                      "counts": res.counts(),
+                                      "planner": LAST_RUN["planner"]}
             _agree(mesh, mesh.rank != 0 or _same_bytes(csv, ref_csv), dev,
                    f"{engine} engine's CSV differs from the host reference")
 

@@ -195,6 +195,9 @@ def plan_host_range(fasta_path: str, num_reads: int, num_genomes: int,
     da_s = np.ascontiguousarray(open_da(fasta_path, mmap=True)[lo:hi])
     eb_s = (np.ascontiguousarray(open_ebwt(fasta_path, mmap=True)[lo:hi])
             if use_ebwt else None)
+
+    if not native.available():
+        raise RuntimeError("per-host planning requires the native library")
     packed, doc, nc, window, bad_s, bad_l, _, _ = native.plan_native(
         lcp_s, da_s, eb_s, num_reads, alpha, SYMBOL_RANK_LUT,
         _DEGENERATE_BYTE, use_u16=use_u16, pad_block=1,

@@ -67,6 +67,7 @@ from ..ops.classify_ops import ClassifyResult
 from ..ops.classify_torch import (_pack_triplet, _unpack_triplet,
                                   blockwise_cascade)
 from ..ops.dense_score import _dense_chunk
+from ..ops.fused_pipeline import _plan_python, _planner
 from ..ops.pair_kernels import BUCKET_CAPS
 from ..ops.pair_score import _pair_packed_block_offset, to_device
 from ..pipeline import CSV_HEADER, _write_csv_block
@@ -386,7 +387,7 @@ def _finish(mesh: Mesh, out, num_reads: int, output_path: str,
             _write_csv_block(f, 0, res)
     LAST_RUN.clear()
     LAST_RUN.update({"mesh": dict(mesh.shape), "rank": mesh.rank,
-                     "world": mesh.world, **stats,
+                     "world": mesh.world, "planner": _planner(), **stats,
                      "memory": device_memory_stats(dev),
                      "phases": dict(timer.phases)})
     timer.report()
@@ -413,11 +414,17 @@ def run_sharded(collections, output_path: str, num_reads: int,
     routing: genome-dense clusters to the matmul chunks, IUPAC-degenerate
     and over-long ones to the host rescue (COO corrections, or a dense
     host matrix when they are many) — the reference's full input domain.
+
+    Without the native library the whole-file driver plans with
+    ``_plan_python`` (no density routing; the rescue as COO corrections
+    from the numpy scorer), on every rank, each rank taking its shard of
+    the planned streams: ``lime_tpu``'s one-process mesh, whose range
+    planning (``plan_host_range``) needs the library.
     """
     config = config or DEFAULT_CONFIG
     dev = resolve_device(device)
     mesh = mesh or make_mesh()
-    if mesh.world > 1:
+    if mesh.world > 1 and native.available():
         return _run_sharded_multiprocess(collections, output_path,
                                          num_reads, num_genomes,
                                          lineage_path, read_len, config,
@@ -437,12 +444,18 @@ def run_sharded(collections, output_path: str, num_reads: int,
             lcp = open_lcp(fasta, mmap=True)
             da = open_da(fasta, mmap=True)
             ebwt = open_ebwt(fasta, mmap=True) if config.use_ebwt else None
-            (packed, doc, nc, window, bad_s, bad_l, den_s,
-             den_l) = native.plan_native(
-                lcp, da, ebwt, num_reads, config.alpha, SYMBOL_RANK_LUT,
-                _DEGENERATE_BYTE, use_u16=False, pad_block=1,
-                pad_doc=num_reads + num_genomes, g_dense=g_dense,
-                dense_min=dense_min)
+            if native.available():
+                (packed, doc, nc, window, bad_s, bad_l, den_s,
+                 den_l) = native.plan_native(
+                    lcp, da, ebwt, num_reads, config.alpha,
+                    SYMBOL_RANK_LUT, _DEGENERATE_BYTE, use_u16=False,
+                    pad_block=1, pad_doc=num_reads + num_genomes,
+                    g_dense=g_dense, dense_min=dense_min)
+            else:
+                packed, doc, window, bad_s, bad_l = _plan_python(
+                    lcp, da, ebwt, num_reads, num_genomes, config,
+                    use_u16=False)
+                den_s = den_l = np.empty(0, np.int64)
             packs.append(packed)
             docs.append(doc.view(np.int32))
             windows.append(window)
@@ -470,6 +483,12 @@ def run_sharded(collections, output_path: str, num_reads: int,
             packed[fi, :len(packs[fi])] = packs[fi]
             doc[fi, :len(docs[fi])] = docs[fi]
         packs = docs = None
+        # this rank's shard of the streams (all of them on one rank; more
+        # ranks only without the native library, which plans no dense
+        # chunks and no host matrix)
+        shard = n_p // n_shards
+        packed = packed[:, mesh.rank * shard:(mesh.rank + 1) * shard]
+        doc = doc[:, mesh.rank * shard:(mesh.rank + 1) * shard]
         hostm = None
         if host_mats:
             hostm = np.zeros((F, num_reads, num_genomes),
@@ -697,6 +716,8 @@ def run_sharded_pairs(collections, output_path: str, num_reads: int,
     (:func:`_run_sharded_pairs_multiprocess`).
     """
     config = config or DEFAULT_CONFIG
+    if not native.available():
+        raise RuntimeError("pair engine requires the native planner")
     dev = resolve_device(device)
     mesh = mesh or make_mesh()
     if mesh.world > 1:

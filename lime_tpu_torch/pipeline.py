@@ -14,6 +14,11 @@ The counterparts of ``lime_tpu/pipeline.py``, with an explicit
   ``LimeConfig(fused=True)`` runs the fused serving path
   (``ops/fused_pipeline.py``), anything else the staged stages, which
   write their checkpoints next to the collections.
+
+Without the native library (``native.available()`` False) the stages
+take ``lime_tpu``'s numpy fallbacks: ``find_clusters`` for the scan,
+``score_clusters`` for the host executor and for K3's rescued clusters,
+and a Python formatter for the CSV; ``LAST_RUN["planner"]`` says which.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import dataclasses
 import os
 import sys
 from concurrent.futures import ThreadPoolExecutor
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -38,12 +43,12 @@ from .formats.res import (dense_from_bin, read_results_bin,
                           read_results_txt, write_results_bin,
                           write_results_txt)
 from .host import _DEGENERATE_BYTE
-from .ops.classify_ops import classify_reads
+from .ops.classify_ops import _TYPE_CHARS, TYPE_A, TYPE_U, classify_reads
 from .ops.classify_torch import classify_reads_torch
-from .ops.cluster_scan import cluster_metadata
+from .ops.cluster_scan import cluster_metadata, find_clusters
 from .ops.fused_pass import score_clusters_tpu
-from .ops.fused_pipeline import run_fused
-from .ops.scoring import normalize_scores
+from .ops.fused_pipeline import _planner, run_fused
+from .ops.scoring import normalize_scores, score_clusters
 from .utils import timing
 from .utils.timing import PhaseTimer
 
@@ -52,8 +57,9 @@ __all__ = ["ClassifySummary", "cluster_lcp", "cluster_bwt", "classify",
 
 CSV_HEADER = "C/U/A/H,IdSeqRead,TaxID,maxSim\n"
 
-#: Times of the most recent staged run: {"phases": {stage: s}, "stages":
-#: {stage: {phase: s summed over collections}}}.
+#: The most recent staged run: {"planner": "native" or "numpy",
+#: "phases": {stage: s}, "stages": {stage: {phase: s summed over
+#: collections}}}.
 LAST_RUN: dict = {}
 
 
@@ -66,13 +72,33 @@ class ClassifySummary:
     unclassified: int
 
 
+def _format_sim(x: float) -> str:
+    """C++ ostream default float formatting (%g with 6 significant digits)."""
+    return f"{float(x):g}"
+
+
 def _write_csv_block(out, base: int, res) -> None:
     """Emit CSV rows matching the reference's output (src/Classify.cpp:
-    722-731) via the native formatter."""
-    out.flush()
-    out.buffer.write(native.format_csv(
-        np.asarray(res.types), np.asarray(res.taxid), np.asarray(res.sim),
-        base))
+    722-731): the native formatter, or ``lime_tpu``'s Python loop without
+    the native library."""
+    if native.available():
+        out.flush()
+        out.buffer.write(native.format_csv(
+            np.asarray(res.types), np.asarray(res.taxid),
+            np.asarray(res.sim), base))
+        return
+    lines: List[str] = []
+    for i, t in enumerate(res.types):
+        rid = base + i
+        if t == TYPE_U:
+            lines.append(f"U,{rid},NA,0\n")
+        elif t == TYPE_A:
+            lines.append(f"A,{rid},NA,0\n")
+        else:
+            ch = _TYPE_CHARS[t]
+            lines.append(
+                f"{ch},{rid},{res.taxid[i]},{_format_sim(res.sim[i])}\n")
+    out.write("".join(lines))
 
 
 def write_csv(output_path: str, res) -> None:
@@ -96,9 +122,13 @@ def cluster_lcp(fasta_path: str, num_reads: int, num_genomes: int,
     with timer.phase("scan", nbytes=8 * len(lcp)):
         # the native scan honours config.threads (the reference's
         # ClusterLCP `threads` argument, src/ClusterLCP.cpp:139)
-        p_start, lens = native.plan_clusters(
-            np.asarray(lcp), np.asarray(da), num_reads, config.alpha,
-            threads=config.threads)
+        if native.available():
+            p_start, lens = native.plan_clusters(
+                np.asarray(lcp), np.asarray(da), num_reads, config.alpha,
+                threads=config.threads)
+        else:
+            p_start, lens = find_clusters(np.asarray(lcp), np.asarray(da),
+                                          num_reads, config.alpha)
     with timer.phase("write"):
         write_clusters(clusters_path_for(fasta_path, config.alpha), p_start,
                        lens)
@@ -160,7 +190,7 @@ def cluster_bwt(fasta_path: str, read_len: int,
                                      alpha=meta.alpha,
                                      lcp=open_lcp(fasta_path),
                                      device=device, timer=timer)
-        else:
+        elif native.available():
             # the SIMD scorer honours config.threads (the reference's
             # ClusterBWT_DA OpenMP argument, src/ClusterBWT_DA.cpp:630);
             # outputs do not depend on the thread count
@@ -170,6 +200,10 @@ def cluster_bwt(fasta_path: str, read_len: int,
                 meta.num_reads, meta.num_genomes, SYMBOL_RANK_LUT,
                 _DEGENERATE_BYTE, IUPAC_WATERFALL_PAIRS,
                 wide=config.wide_sim, threads=config.threads)
+        else:
+            sim = score_clusters(p_start, lens, np.asarray(da),
+                                 None if ebwt is None else np.asarray(ebwt),
+                                 meta.num_reads, meta.num_genomes, config)
     if os.environ.get("LIME_DUMP_SIM") == "1":
         dump_sim(sim)
     with timer.phase("write"):
@@ -332,7 +366,8 @@ def _run(collections, output_path, num_reads, num_genomes, lineage_path,
                 except FileNotFoundError:
                     pass
     LAST_RUN.clear()
-    LAST_RUN.update({"phases": dict(timer.phases), "stages": stages})
+    LAST_RUN.update({"planner": _planner(), "phases": dict(timer.phases),
+                     "stages": stages})
     return summary
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 import numpy as np
@@ -38,6 +39,30 @@ _BASE = np.frombuffer(b"ACGT", dtype=np.uint8)
 #: :func:`compute_truth` and :func:`paper_1f_sequences`
 SEED, INSERT_LEN, MUTATION_RATE, NEGATIVE_FRACTION = 17, 250, 0.01, 0.05
 CONSERVED_FRAC, GROUP_SIZE, CHUNK = 0.1, 64, 1 << 16
+
+
+#: host RAM per position of one native SA-IS build with the generator's
+#: own arrays beside it: the index guard's 40 B
+#: (``index.builder._check_build_memory``) and a margin; the paper
+#: shape's four builds at once peak near 56 B a position
+SAIS_BYTES_PER_POSITION = 64
+
+#: the last :func:`make_big_dataset`'s index builds: ``workers`` (builds at
+#: once), ``free_bytes`` (free RAM before them), ``need_bytes`` (one build's)
+LAST_BUILD: dict = {}
+
+
+def _build_workers(positions: int, builds: int) -> int:
+    """How many SA-IS builds of ``positions`` positions each fit at once in
+    90% of the free RAM (one at least, ``builds`` at most)."""
+    need = positions * SAIS_BYTES_PER_POSITION
+    try:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (ValueError, OSError):  # pragma: no cover - platform dependent
+        free = 0
+    workers = max(1, min(builds, int(free * 0.9) // need))
+    LAST_BUILD.update(workers=workers, free_bytes=free, need_bytes=need)
+    return workers
 
 
 @dataclasses.dataclass
@@ -160,22 +185,28 @@ def make_big_dataset(root: str, num_pairs: int, num_genomes: int,
                     f"{50000 + g // 256};60000\n")
 
     # --- per-collection merged indexes (reads of one strand + genomes) -----
+    # The SA-IS builds run side by side (each is single-threaded C++, and
+    # ctypes releases the GIL for the call), as many as the free RAM holds.
     glens = np.full(num_genomes, genome_len, np.int64)
     gflat_ascii = _BASE[flat]
     lens = np.concatenate([np.full(num_pairs, read_len, np.int64), glens])
-    collections = []
-    n_positions = 0
-    for tag, reads in (("1F", reads1), ("1RC", _COMP[reads1[:, ::-1]]),
-                       ("2F", reads2), ("2RC", _COMP[reads2[:, ::-1]])):
+
+    def build(tag: str, reads: np.ndarray):
         path = os.path.join(root, f"col_{tag}.fasta")
         with open(path, "w") as f:
             f.write(f">stub {tag}\nACGT\n")  # binaries read only the arrays
         concat = np.concatenate([_BASE[reads.reshape(-1)], gflat_ascii])
         ebwt, lcp, da = native.build_index_native_concat(concat, lens)
         write_index_arrays(path, ebwt, lcp, da)
-        n_positions = len(ebwt)
-        del ebwt, lcp, da
-        collections.append(path)
+        return path, len(ebwt)
+
+    strands = (("1F", reads1), ("1RC", _COMP[reads1[:, ::-1]]),
+               ("2F", reads2), ("2RC", _COMP[reads2[:, ::-1]]))
+    workers = _build_workers(int((lens + 1).sum()), len(strands))
+    with ThreadPoolExecutor(workers) as pool:
+        built = list(pool.map(lambda job: build(*job), strands))
+    collections = [path for path, _ in built]
+    n_positions = built[-1][1]
 
     return BigDataset(root=root, collections=collections,
                       lineage_path=lineage_path, num_reads=num_pairs,

@@ -21,6 +21,10 @@ Usage: python -m tests._torch_dist_worker SPEC.json --rank R --world W
   mesh's ``reduce_scatter_dp`` (``mesh`` is 1 x world), which must wrap
   mod 256.
 
+With ``no_native`` set, the rank runs as if the native library had
+failed to build: ``native.available()`` is False and every binding
+raises, so only the numpy fallbacks can run.
+
 Every rank writes ``out.<rank>.json`` (and ``out.<rank>.npz`` for the
 steps) beside ``SPEC.json``.  ``jax`` and ``lime_tpu`` are blocked: the
 ranks run the port alone.
@@ -94,6 +98,10 @@ def main() -> None:
         torch.set_num_threads(1)
     os.environ.update(spec.get("env", {}))
     out_base = os.path.join(os.path.dirname(args.spec), f"out.{args.rank}")
+    if spec.get("no_native"):
+        from lime_tpu_torch import native
+
+        native.LOAD_ERROR = "the library was not built (no_native)"
 
     from lime_tpu_torch import LimeConfig
     from lime_tpu_torch.ops import banded_kernels, pair_kernels

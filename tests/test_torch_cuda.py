@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from lime_tpu_torch import (LimeConfig, host, native, reference, run_paired,
-                            run_single)
+from lime_tpu_torch import (LimeConfig, host, native, pipeline, reference,
+                            run_paired, run_single)
 from lime_tpu_torch.constants import NUM_RANKS, SYMBOL_RANK_LUT
 from lime_tpu_torch.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch.ops import banded_kernels as bk
@@ -27,6 +27,7 @@ from lime_tpu_torch.ops import pair_kernels as pk
 from lime_tpu_torch.ops import pair_score as tps
 from lime_tpu_torch.ops.dense_score import (_dense_chunk, _dense_chunk_offset,
                                             dense_score_into)
+from lime_tpu_torch.parallel import sharded
 from lime_tpu_torch.synth_big import make_big_dataset
 from lime_tpu_torch.utils.memory import MemoryProfiler, memory_report
 from lime_tpu_torch.utils.timing import (pair_kernel_launches, read_trace,
@@ -49,6 +50,19 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def planner_is_native(request):
+    """Every run of this file plans with the C++ planner (a failed native
+    build cannot pass on the numpy path unseen), except the runs of the
+    ``no_native`` tests, which set the library aside."""
+    runs = (fused_pipeline.LAST_RUN, pipeline.LAST_RUN, sharded.LAST_RUN)
+    for run in runs:
+        run.clear()
+    yield
+    if "no_native" not in request.node.name:
+        assert all(run.get("planner", "native") == "native" for run in runs)
 
 
 @pytest.fixture(scope="module")
@@ -890,3 +904,55 @@ def test_memory_profiler_reads_device_memory(cuda):
     assert "hbm peak" in prof.report()
     assert "cuda:0 hbm=" in memory_report()
     del x
+
+
+# ---------------------------------------------------------------------------
+# Without the native library
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def long_clusters(cuda, tmp_path_factory):
+    """Deep enough for mixed clusters past 255 rows, which the numpy
+    planner sends to the numpy rescue."""
+    return make_dataset(str(tmp_path_factory.mktemp("long")),
+                        num_pairs=2400, read_len=100,
+                        genome_lens=(600, 400), seed=11)
+
+
+@pytest.mark.parametrize("kw", [dict(fused=True), dict()],
+                         ids=["fused", "staged"])
+def test_no_native_runs_on_the_card(cuda, long_clusters, tmp_path,
+                                    monkeypatch, kw):
+    """The library set aside (``available()`` False, every binding
+    raising): the fused entry point falls to the banded engine on the
+    numpy plan and the staged one to ``find_clusters``, both with the
+    numpy rescue and K3 on the card; CSV byte-identical to the host
+    reference, K3 launched once per collection, ``planner`` numpy."""
+    ds = long_clusters
+    cfg = LimeConfig(**kw)
+    args = (ds.num_reads, ds.num_genomes, ds.lineage_path, ds.read_len, cfg)
+    a, c = str(tmp_path / "torch.csv"), str(tmp_path / "ref.csv")
+    reference.reference_csv(ds.collections, c, *args)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "LOAD_ERROR", "set aside (test)")
+    assert not native.available()
+    pk.reset_launches()
+    bk.reset_launches()
+    run_paired(ds.collections, a, *args, keep_results=False, device=cuda)
+    run = fused_pipeline.LAST_RUN if cfg.fused else pipeline.LAST_RUN
+    assert _read(a) == _read(c)
+    assert run["planner"] == "numpy"
+    assert bk.LAUNCHES["banded"] == len(ds.collections)
+    assert not any(pk.LAUNCHES.values())
+
+
+def test_planner_is_native_with_the_library(cuda, deep, tmp_path):
+    assert native.available()
+    args = (deep.num_reads, deep.num_genomes, deep.lineage_path,
+            deep.read_len)
+    run_paired(deep.collections, str(tmp_path / "f.csv"), *args, FUSED,
+               device=cuda)
+    assert fused_pipeline.LAST_RUN["planner"] == "native"
+    run_paired(deep.collections, str(tmp_path / "s.csv"), *args,
+               LimeConfig(), keep_results=False, device=cuda)
+    assert pipeline.LAST_RUN["planner"] == "native"

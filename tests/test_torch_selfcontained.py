@@ -124,28 +124,59 @@ def test_port_imports_nothing_of_jax_lime_tpu_or_tests():
 
 def test_package_reexports_match():
     """``formats`` re-exports ``lime_tpu.formats``' names, and ``ops``
-    ``normalize_scores`` and ``classify_reads``, from the port's own
+    ``lime_tpu.ops``' four (``find_clusters``, ``normalize_scores``,
+    ``score_clusters``, ``classify_reads``), from the port's own
     modules."""
     import lime_tpu.formats as jformats
+    import lime_tpu.ops as jops
     import lime_tpu_torch.formats as formats
     from lime_tpu_torch import ops
-    from lime_tpu_torch.ops import classify_ops, scoring
+    from lime_tpu_torch.ops import classify_ops, cluster_scan, scoring
 
     public = {n for n in dir(jformats) if not n.startswith("_")
               and not isinstance(getattr(jformats, n), type(jformats))}
     assert public <= set(dir(formats))
     for n in public:
         assert getattr(formats, n).__module__.startswith("lime_tpu_torch.")
+    assert ops.find_clusters is cluster_scan.find_clusters
     assert ops.normalize_scores is scoring.normalize_scores
+    assert ops.score_clusters is scoring.score_clusters
     assert ops.classify_reads is classify_ops.classify_reads
+    functions = {n for n in dir(jops) if not n.startswith("_")
+                 and callable(getattr(jops, n))}
+    assert functions == set(ops.__all__)
     with pytest.raises(AttributeError):
-        ops.find_clusters
+        ops.iupac_waterfall
 
 
 def test_native_source_is_byte_identical():
     assert _read(os.path.join(PORT, "native", "csrc", "lime_native.cpp")) \
         == _read(os.path.join(ROOT, "lime_tpu", "native", "csrc",
                               "lime_native.cpp"))
+
+
+@pytest.mark.parametrize("module,name", [
+    ("ops.cluster_scan", "find_clusters"),
+    ("ops.cluster_scan", "cluster_metadata"),
+    ("ops.scoring", "_expand_positions"),
+    ("ops.scoring", "_segment_stats"),
+    ("ops.scoring", "_pair_indices"),
+    ("ops.scoring", "iupac_waterfall"),
+    ("ops.scoring", "normalize_scores"),
+    ("ops.fused_pipeline", "_plan_python"),
+])
+def test_numpy_fallbacks_are_verbatim_copies(module, name):
+    """The port's copies of ``lime_tpu``'s numpy fallbacks hold their
+    originals' source, byte for byte (``score_clusters``, whose pairs
+    score in groups on a thread pool, is held by its outputs in
+    ``test_torch_no_native.py``)."""
+    import importlib
+    import inspect
+
+    got = importlib.import_module(f"lime_tpu_torch.{module}")
+    want = importlib.import_module(f"lime_tpu.{module}")
+    assert inspect.getsource(getattr(got, name)) == \
+        inspect.getsource(getattr(want, name))
 
 
 def test_native_builds_into_its_own_path():
