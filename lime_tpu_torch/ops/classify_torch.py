@@ -125,19 +125,31 @@ def cascade_core(dense, max_sim, tax, rank_matrix, valid_t, error,
     return types, out_tax, out_sim
 
 
+def cascade_block_for(block: int, g_pad: int) -> int:
+    """The cascade's read block at ``g_pad`` genome columns: ``block``,
+    or, where its ``(F, block, g_pad)`` float32 tiles would outgrow those
+    of 16,384 reads at G_pad 3,456 (a 3,423-genome database), the largest
+    power of two that keeps them within.  ``block`` is a power of two,
+    so the result divides everything ``block`` divides (R_pad, a row
+    block)."""
+    cap = max(1, (1 << 14) * 3456 // g_pad)
+    return min(block, 1 << (cap.bit_length() - 1))
+
+
 def blockwise_cascade(sims, tax, rank_matrix, valid_t, error, norm, beta,
                       num_files: int, tax_rank: int, assign_higher: bool,
                       is_mod: bool, block: int):
     """Counter wrap + normalise + beta gate + cascade over (F, R_pad, G_pad).
 
     Walks read blocks so one (block, F, G_pad) float32 tile is live at a
-    time.  ``is_mod``: ``sims`` is an int8 accumulator whose bits are the
-    mod-256 counters (read through a uint8 view, not a value cast);
-    otherwise plain int32 counts.  ``norm``, ``beta``, ``error`` are
-    float32 tensors on the planes' device.  R_pad must be a multiple of
-    ``block``.
+    time, ``block`` clamped by :func:`cascade_block_for`.  ``is_mod``:
+    ``sims`` is an int8 accumulator whose bits are the mod-256 counters
+    (read through a uint8 view, not a value cast); otherwise plain int32
+    counts.  ``norm``, ``beta``, ``error`` are float32 tensors on the
+    planes' device.  R_pad must be a multiple of ``block``.
     """
     F, r_pad, g_pad = sims.shape
+    block = cascade_block_for(block, g_pad)
     dev = sims.device
     types = torch.zeros(r_pad, dtype=torch.int8, device=dev)
     taxid = torch.zeros(r_pad, dtype=torch.int64, device=dev)

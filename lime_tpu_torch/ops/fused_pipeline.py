@@ -53,8 +53,13 @@ and fetches its triplet.  That mode splits the budget in two equal
 halves: one for the stack (``B`` leaves half of its half as slack, as
 ``lime_tpu``'s formula does, and the resident dense chunks come out of
 that slack), one for the resident pair streams; ``LIME_HBM_BUDGET`` and
-``LIME_STREAM_BUDGET`` cap each half.  The cascade's and the chunks'
-temporaries, which do not grow with ``B``, live in ``MEMORY_HEADROOM``.
+``LIME_STREAM_BUDGET`` cap each half.  The cascade's and the dense
+chunks' temporaries, which do not grow with ``B``, are held to the size
+they have at G_pad 3,456 whatever the width: the cascade walks read
+blocks of ``classify_torch.cascade_block_for`` (16,384 reads up to that
+width, fewer past it) and the dense products run in genome-column tiles
+of at most 3,456 columns (``dense_score.dense_tile_for``), so they fit
+in ``MEMORY_HEADROOM`` at any width.
 Streams estimated over their half are planned per read-row owner and
 swept in owner passes, each pass uploading only its owner's chunks.
 The banded engine has no blocked
@@ -90,8 +95,8 @@ from ..utils.timing import (PhaseTimer, carry_phases, device_memory_stats,
 from .banded_kernels import banded_sim_into
 from .classify_ops import ClassifyResult
 from .classify_torch import (_classify_program_planes, _unpack_triplet,
-                             alloc_planes)
-from .dense_score import _dense_chunk, _dense_chunk_offset
+                             alloc_planes, cascade_block_for)
+from .dense_score import _dense_chunk, _dense_chunk_offset, dense_columns
 from .pair_score import (coo_scatter_into, coo_scatter_into_stack,
                          pair_score_packed_into, pair_score_packed_offset,
                          pair_upload, to_device)
@@ -100,15 +105,17 @@ logger = logging.getLogger("lime_tpu_torch")
 
 #: Device memory kept free beside the score planes: one collection's
 #: packed streams and their unpacked int64 temporaries, the dense chunks'
-#: feature tensors, and the cascade's per-block float32 tiles.
+#: feature tensors, and the cascade's per-block float32 tiles (the last
+#: two of a size that does not grow past G_pad 3,456).
 MEMORY_HEADROOM = 8 << 30
 
 #: Statistics of the most recent run: the engine, the host split, per-
 #: bucket pair-chunk counts, dense chunks, the host planes' and the
-#: delta-COO chains' bytes, device memory and phase times (and, for a
+#: delta-COO chains' bytes, device memory, phase times and counts, the
+#: width counters of :func:`_count_dense` among them (and, for a
 #: row-blocked run, its block size, blocks, owner passes, resident bytes
 #: and the pair-kernel launches its plan implies).  Read by
-#: chip_smoke.py and tests.
+#: chip_smoke.py, the benchmark and tests.
 LAST_RUN: dict = {}
 
 #: lime_tpu's row-delta caps of the delta-COO formats: coo24 (12-bit
@@ -441,13 +448,50 @@ def _plan_pairs(lcp, da, ebwt, num_reads: int, num_genomes: int,
 
 
 def _dispatch_dense(plane: torch.Tensor, d_chunks, f_feat: int, g_pad: int,
-                    keep: list) -> None:
+                    keep: list, tally: list, num_reads: int) -> None:
     """Upload ``pack_chunks``' dense chunks and add each one's matmul
-    into the device ``plane``."""
+    into the device ``plane``; each chunk's lanes into ``tally``."""
+    for lanes in _read_lanes(d_chunks, num_reads):
+        _tally(tally, lanes)
     for ridx, gidx, cmap_c, rid_c in d_chunks:
         _dense_chunk(plane, *(to_device(a, plane.device, keep)
                               for a in (ridx, gidx, cmap_c, rid_c)),
                      B_BLK, C_BLK, PR, f_feat, g_pad)
+
+
+def _read_lanes(d_chunks, num_reads: int) -> list:
+    """The read lanes of each host chunk of ``d_chunks`` that carry a
+    read: ``rid`` entries other than the ``num_reads`` drop row.  Reads
+    only the ``rid`` arrays, 16,384 entries a chunk."""
+    return [int(np.count_nonzero(c[3] != num_reads)) for c in d_chunks]
+
+
+def _tally(tally: list, lanes: int) -> None:
+    """Add one computed chunk to ``tally``: its ``lanes`` that carry a
+    read, and all its lanes, ``B_BLK * PR``."""
+    tally[0] += lanes
+    tally[1] += B_BLK * PR
+
+
+def _count_dense(timer: PhaseTimer, tally: list, g_pad: int,
+                 cascade_block: int) -> None:
+    """The run's width counters: ``dense_cells``, the read-lane x
+    genome-column cells the dense products compute (every lane of a
+    computed chunk over ``dense_columns(g_pad)``, its tiles summed);
+    ``dense_lanes`` and ``dense_lanes_total`` from ``tally``; the
+    cascade's read block."""
+    timer.count("dense_cells", tally[1] * dense_columns(g_pad))
+    timer.count("dense_lanes", tally[0])
+    timer.count("dense_lanes_total", tally[1])
+    timer.count("cascade_block", cascade_block)
+
+
+def _width_log(timer: PhaseTimer) -> str:
+    """:func:`_count_dense`'s counters, for the run's log line."""
+    c = timer.counts
+    return (f"{c['dense_cells']} dense cells, {c['dense_lanes']} of "
+            f"{c['dense_lanes_total']} lanes carry a read; cascade block "
+            f"{c['cascade_block']}")
 
 
 def run_fused(collections: Sequence[str], num_reads: int, num_genomes: int,
@@ -515,6 +559,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
     chunk_counts = [0, 0, 0]
     banded_windows = []  # per collection, 0 = nothing banded
     stats = {"dense_chunks": 0, "chain_bytes": 0, "host_plane_bytes": 0}
+    tally = [0, 0]  # dense read lanes carrying a read, all lanes
     scratch = None  # the host plane the large rescue sets reuse
 
     with timer.phase("score"):
@@ -525,7 +570,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
             lineage, config, num_genomes, g_pad, read_len, device, keep)
         if all_host:
             _job_shop(collections, planes, num_reads, num_genomes, config,
-                      timer, keep, corr, stats)
+                      timer, keep, corr, stats, tally)
             indexes = ()
         else:
             indexes = _collections(collections, config, timer)
@@ -564,7 +609,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
                         num_genomes, g_pad, timer=timer)
                 with timer.phase("dispatch", args=fi):
                     _dispatch_dense(planes[fi], d_chunks, f_feat, g_pad,
-                                    keep)
+                                    keep, tally, num_reads)
                 stats["dense_chunks"] += len(d_chunks)
                 if len(left_s):
                     bad_start = np.concatenate([bad_start, left_s])
@@ -622,6 +667,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
         keep.clear()
     mem = device_memory_stats(device)
     del buf, planes, packed
+    _count_dense(timer, tally, g_pad, cascade_block_for(block, g_pad))
     LAST_RUN.clear()
     LAST_RUN.update({"engine": ("all_host" if all_host else
                                 "pair" if pair else "banded"),
@@ -631,10 +677,10 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
                      "memory": mem, **timer.record()})
     logger.info("%s engine, host share %d/256; pair chunks per bucket "
                 "(caps 16/64/255): %s; banded windows: %s; dense chunks "
-                "%d; delta-COO chains %d B; host planes %d B; device "
+                "%d (%s); delta-COO chains %d B; host planes %d B; device "
                 "memory: %s", LAST_RUN["engine"], host_num, chunk_counts,
-                banded_windows, stats["dense_chunks"], stats["chain_bytes"],
-                stats["host_plane_bytes"], mem)
+                banded_windows, stats["dense_chunks"], _width_log(timer),
+                stats["chain_bytes"], stats["host_plane_bytes"], mem)
     timer.report()
     return ClassifyResult(t_h[:num_reads], x_h[:num_reads], s_h[:num_reads])
 
@@ -642,7 +688,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
 def _job_shop(collections: Sequence[str], planes: torch.Tensor,
               num_reads: int, num_genomes: int, config: LimeConfig,
               timer: PhaseTimer, keep: list, corr: list,
-              stats: dict) -> None:
+              stats: dict, tally: list) -> None:
     """The all-host split in one block: ``lime_tpu``'s job shop.
 
     Two host workers each take one collection at a time: load, the light
@@ -706,7 +752,8 @@ def _job_shop(collections: Sequence[str], planes: torch.Tensor,
             fi = jobs[job]
             d_chunks, res = job.result()
             with timer.phase("dispatch", args=fi):
-                _dispatch_dense(planes[fi], d_chunks, f_feat, g_pad, keep)
+                _dispatch_dense(planes[fi], d_chunks, f_feat, g_pad, keep,
+                                tally, num_reads)
                 stats["chain_bytes"] += _add_corrections(
                     res, fi, planes[fi], corr, keep, False)
             stats["dense_chunks"] += len(d_chunks)
@@ -838,11 +885,12 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
 
     keep = []  # pinned staging buffers + their copies' events
     plans = []  # per collection: (buffers, chunks, windows, row_bits)
-    dense_dev = []  # per collection: its dense chunks on the device
+    dense_dev = []  # per collection: (device chunk, its read lanes)
     host_planes = {}  # collection -> its host-scored plane
     corr = []
     chunk_counts = [0, 0, 0]
     dense_bytes = 0
+    tally = [0, 0]  # dense read lanes carrying a read, all lanes
     stats = {"dense_chunks": 0, "chain_bytes": 0}
 
     for fi, (lcp, da, ebwt) in _collections(collections, config, timer):
@@ -887,8 +935,11 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
             dense_bytes += nb
             stats["dense_chunks"] += len(d_chunks)
             with timer.phase("dispatch", args=fi):
-                dense_dev[fi] = [tuple(to_device(a, device, keep) for a in c)
-                                 for c in d_chunks]
+                dense_dev[fi] = [(tuple(to_device(a, device, keep)
+                                        for a in c), lanes)
+                                 for c, lanes in zip(
+                                     d_chunks,
+                                     _read_lanes(d_chunks, num_reads))]
             if len(left_s):
                 bad_s = np.concatenate([bad_s, left_s])
                 bad_l = np.concatenate([bad_l, left_l])
@@ -950,10 +1001,11 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
                                                  base)
                     sync()
                 with timer.phase("block_dense"):
-                    for ridx, gidx, cmap_c, rid_c in dense_dev[fi]:
-                        _dense_chunk_offset(stack, fi, ridx, gidx, cmap_c,
-                                            rid_c, base, B_BLK, C_BLK, PR,
-                                            f_feat, g_pad)
+                    for chunk, lanes in dense_dev[fi]:
+                        if _dense_chunk_offset(stack, fi, *chunk, base,
+                                               B_BLK, C_BLK, PR, f_feat,
+                                               g_pad):
+                            _tally(tally, lanes)
                     sync()
                 hi_r = min(base + B, num_reads)
                 if fi in host_planes and hi_r > base:
@@ -1030,6 +1082,7 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
     keep.clear()
     mem = device_memory_stats(device)
     del buf, stack
+    _count_dense(timer, tally, g_pad, cascade_block_for(block, g_pad))
     LAST_RUN.clear()
     LAST_RUN.update({"engine": "blocked", "planner": _planner(),
                      "host_num": host_num, "B": B,
@@ -1044,9 +1097,10 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
                      "memory": mem, **timer.record()})
     logger.info("blocked engine: host share %d/256, B=%d, %d blocks, %d "
                 "owner passes; pair chunks per bucket %s, launches %s; "
-                "resident %s; host planes %d B, delta-COO chains %d B; "
+                "%s; resident %s; host planes %d B, delta-COO chains %d B; "
                 "device memory %s", host_num, B, blocks, n_pass,
-                chunk_counts, launches, LAST_RUN["resident_bytes"],
+                chunk_counts, launches, _width_log(timer),
+                LAST_RUN["resident_bytes"],
                 LAST_RUN["host_plane_bytes"], stats["chain_bytes"], mem)
     timer.report()
     return ClassifyResult(np.concatenate(out_t), np.concatenate(out_x),

@@ -153,7 +153,10 @@ def _pair_packed_block_offset(stack: torch.Tensor, fi: int, rows_w, bits_b,
     Selecting them waits for the device (the size of the selection); a
     variant that instead adds 0 for every other row at cells spread over
     the block, with no wait, measured no faster on an H100 (PERF.md):
-    the replay is bound by the host's launches either way.
+    the replay is bound by the host's launches either way.  An empty
+    selection adds nothing and launches nothing: torch's CUDA index_add_
+    into a plane of over 2^31 cells launches an empty grid for it, an
+    error.
     """
     row, gc, gs, hits = _decode_chunk(rows_w, bits_b, gcol, window,
                                       row_bits, cap)
@@ -161,8 +164,9 @@ def _pair_packed_block_offset(stack: torch.Tensor, fi: int, rows_w, bits_b,
     local = row - row_base
     sel = torch.nonzero(~gs & (local >= 0) & (local < B)
                         & (hits != 0)).squeeze(1)
-    stack[fi].view(-1).index_add_(0, local[sel] * g_pad + gc[sel],
-                                  hits[sel].to(stack.dtype))
+    if sel.shape[0]:
+        stack[fi].view(-1).index_add_(0, local[sel] * g_pad + gc[sel],
+                                      hits[sel].to(stack.dtype))
 
 
 def to_device(arr: np.ndarray, device: torch.device, keep: list):

@@ -280,6 +280,53 @@ def test_dense_offset_chunk_cuda_matches_cpu(cuda, conserved, wide):
     assert np.array_equal(stacks[1], stacks[0])
 
 
+@pytest.mark.parametrize("path", ["pair", "dense"])
+def test_offset_scatters_past_2_31_cells_cuda(cuda, deep, conserved, path):
+    """A row-block plane of over 2^31 cells, as at 24,832 genome columns
+    with a row block of 180,224 reads: a block no chunk row falls in
+    takes nothing and raises nothing (torch's CUDA index_add_ into such a
+    plane launches an empty grid for an empty selection, an error), and
+    the block at read 0 holds what a small stack gets on the CPU."""
+    ds = deep if path == "pair" else conserved
+    out = _plan(ds) if path == "pair" else _plan(ds, dense_min=4)
+    g_pad = host._g_pad_for(ds.num_genomes)
+    r_pad = host._r_pad_for(ds.num_reads)
+    big = -(-((1 << 31) + 1) // g_pad)
+    if path == "dense":
+        col = ds.collections[0]
+        chunks = host.pack_chunks(out[4], out[5], open_da(col),
+                                  open_ebwt(col), ds.num_reads,
+                                  ds.num_genomes, g_pad)[0]
+        assert chunks
+
+    def score(stack, base):
+        dev = stack.device
+        if path == "pair":
+            keep = []
+            tps.pair_score_packed_offset(
+                stack, 0, tps.pair_upload(out[0], out[1], dev, keep),
+                out[1], out[2], out[3], base)
+        else:
+            for arrs in chunks:
+                _dense_chunk_offset(stack, 0, *(torch.from_numpy(a).to(dev)
+                                                for a in arrs),
+                                    base, host.B_BLK, host.C_BLK, host.PR,
+                                    4 * host.K, g_pad)
+
+    stack = torch.zeros((1, big, g_pad), dtype=torch.int8, device=cuda)
+    score(stack, r_pad)
+    torch.cuda.synchronize()
+    assert not stack.any()
+    score(stack, 0)
+    want = torch.zeros((1, r_pad, g_pad), dtype=torch.int8)
+    score(want, 0)
+    assert want.any()
+    assert torch.equal(stack[:, :r_pad].cpu(), want)
+    assert not stack[:, r_pad:].any()
+    del stack
+    torch.cuda.empty_cache()
+
+
 @pytest.fixture(scope="module")
 def two_blocks(cuda, tmp_path_factory):
     """16,500 read pairs: two row blocks of 16,384 reads; short genomes
