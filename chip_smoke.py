@@ -8,14 +8,15 @@ code is non-zero:
 
 1. device: the card's name, and nvidia-smi's name and power limit;
 2. build: compile (one nvcc per CUDA source, sm_90a, all at once) and
-   load the pair-hit kernel and the banded kernel K3;
+   load the pair-hit kernel, the banded kernel K3 and the dense kernel;
 3. cascade: the classify program on random (4, 65536, 1024) int8 planes,
    bit-equal to the numpy cascade on the same normalised rows;
 4. e2e: the paper-shape dataset (N read pairs x 930 genomes of 8 kbp,
    100 bp reads; default N = 1,000,000), its host reference CSV, and the
    fused serving path ``run_paired(LimeConfig(fused=True),
    device="cuda")``: byte-identical, the pair-hit kernel launched for
-   every bucket (scan16, scan64, band);
+   every bucket (scan16, scan64, band) and the dense kernel once per
+   dense chunk;
 5. kernels: the pair-hit kernel of each bucket against its plain torch
    version, read rows exact, on a planner-shaped chunk (1M rows, seed 1,
    tiled to 32M) and on every pair chunk of the dataset's four
@@ -33,28 +34,39 @@ code is non-zero:
    3.35 TB/s); then on each collection's planner stream, the launches of
    ``[banded]`` (2 B per touched int8 cell); K3's registers and shared
    memory come from ``-Xptxas -v`` in ``[build]``;
-7. staged: ``run_paired(LimeConfig(), device="cuda")``, the default
+7. kernels (dense): the dense kernel on every dense chunk of the four
+   collections as ``[e2e]`` planned them (one launch each there): its
+   int8 plane exact against the plain version's torch chain run on the
+   card (``_dense_rows`` and a row scatter-add, the path it replaced),
+   and for the 1F collection against the plain version on the CPU, cell
+   counts equal; both timed per call (all of a collection's chunks in
+   one timing) and the kernel as a CUDA-graph replay, beside the bound
+   (4 B per real triple, ``cmap`` and ``rid``, 2 B per nonzero
+   (lane, genome) add, at 3.35 TB/s);
+8. staged: ``run_paired(LimeConfig(), device="cuda")``, the default
    entry point (cluster_lcp -> cluster_bwt with K3 -> classify, through
    the .clrs/.res checkpoints): byte-identical, K3 launched per
    collection;
-8. banded: the fused banded engine, ``LimeConfig(fused=True,
+9. banded: the fused banded engine, ``LimeConfig(fused=True,
    pair_stream=False, dense_threshold=0)``: byte-identical, K3 launched;
-9. blocked: the fused serving path in the row-blocked mode, forced by
+10. blocked: the fused serving path in the row-blocked mode, forced by
    ``LIME_HBM_BUDGET`` = 1 GiB (B = 131,072 reads: 8 blocks), once in
    one pass and once with ``LIME_STREAM_BUDGET`` at half the streams'
    estimate (2 owner passes): byte-identical, the pair-hit kernel
-   launched once per chunk per row block of its pass in every bucket;
+   launched once per chunk per row block of its pass in every bucket,
+   the dense kernel once per dense chunk per row block it reaches;
    B, blocks, passes, the resident stream and dense-chunk bytes and the
    peak device memory beside ``[e2e]``'s;
-10. host_share: the host share of the fused serving path on the same
+11. host_share: the host share of the fused serving path on the same
    dataset: ``[hybrid]`` (``host_frac=0.5``), ``[all_host]``
    (``host_frac=1.0``, the job shop) and ``[hybrid_blocked]``
    (``host_frac=0.5`` under ``LIME_HBM_BUDGET`` = 1 GiB): byte-identical;
    the pair-hit kernel launched once per planned chunk (per row block in
    ``[hybrid_blocked]``) and never in ``[all_host]``, which must offload
-   dense chunks; K3 never; the delta-COO chain and host-plane bytes and
-   the peak device memory beside ``[e2e]``'s;
-11. index: the device index builder at the paper shape: the 1F
+   dense chunks; K3 never; the dense kernel once per dense chunk (per
+   row block it reaches in ``[hybrid_blocked]``); the delta-COO chain
+   and host-plane bytes and the peak device memory beside ``[e2e]``'s;
+12. index: the device index builder at the paper shape: the 1F
    collection's sequences (replayed from the dataset's seed), built by
    ``index.build_index(engine="tpu", device="cuda")``, byte-identical to
    the ``.ebwt``/``.lcp``/``.da`` the native SA-IS wrote for ``[e2e]``;
@@ -62,22 +74,22 @@ code is non-zero:
    descent, extraction with the download), peak device memory, the
    host's available RAM, and the native SA-IS build of the same
    collection timed in the same run;
-12. preprocess: FASTA to CSV with the port alone: the reads and genomes
+13. preprocess: FASTA to CSV with the port alone: the reads and genomes
    of a smaller dataset (``--preprocess-pairs``, default 50,000) written
    as FASTA, ``lime-tpu-torch preprocess`` on them, its four collections
    byte-identical to ``synth_big.paper_dataset``'s (built from arrays,
    no FASTA), then the fused ``run_paired`` on them: CSV byte-identical
    to ``executor="host"``'s on the same collections, the pair-hit kernel
    launched;
-13. sharded: the SPMD engines at world size 1 on NCCL (a one-rank
+14. sharded: the SPMD engines at world size 1 on NCCL (a one-rank
    process group on ``tcp://127.0.0.1``), at the paper shape:
    ``run_sharded`` (banded engine, ``dense_threshold=0``: K3 on every
-   collection, genome-dense clusters on the matmul) and
+   collection, genome-dense clusters on the dense kernel) and
    ``run_sharded_pairs``, ``device="cuda"``: byte-identical to the host
    reference, K3 launched once per collection by the banded engine and
    the pair-hit kernel once per planned chunk by the pair engine; walls,
    spans and peak device memory;
-14. sharded_ranks: several ranks on the one card, gloo between them
+15. sharded_ranks: several ranks on the one card, gloo between them
    (NCCL refuses two ranks on one device), every rank on ``cuda:0``: the
    dry run (``lime_tpu_torch.parallel.dryrun``) in 4 ranks as a 2x2 mesh
    (both engines, on its 100,000-pair dataset with planted >255-row runs,
@@ -86,14 +98,14 @@ code is non-zero:
    3: the chunk exchange); each rank's kernel launches come back, every
    rank must launch, and a rank that fails or outlives its timeout fails
    the phase.  gloo takes the CUDA tensors directly (torch 2.11);
-15. profile: ``[e2e]``'s fused run again, under ``LIME_PROFILE_DIR`` (a
+16. profile: ``[e2e]``'s fused run again, under ``LIME_PROFILE_DIR`` (a
    temporary directory) and a ``MemoryProfiler(interval=0.5,
    track_hbm=True)``: byte-identical; the trace's pair-hit kernel events
    per cap equal the launch counts; the trace's size and export time,
    the ten kernels with the most device time, the device's busy share
    over the traced window (the union of kernel and copy intervals), the
    wall beside ``[e2e]``'s and the memory profile;
-16. unpacked: the 1F collection through the one-byte-per-row path:
+17. unpacked: the 1F collection through the one-byte-per-row path:
    ``native.plan_pairs``, ``pair_score_into`` (the pair-hit kernel once
    per chunk, after the reorder and re-encode on the card),
    ``dense_score_into`` and the exact host scorer on what is left, into
@@ -101,10 +113,10 @@ code is non-zero:
    columns equal ``native.score_clusters_native`` on every cluster of
    the collection, and every chunk's kernel equals the plain version on
    read rows;
-17. dump_sim: ``LIME_DUMP_SIM=1`` on a 40-pair dataset (read length 60,
+18. dump_sim: ``LIME_DUMP_SIM=1`` on a 40-pair dataset (read length 60,
    genomes of 2,000 and 1,500, seed 13): ``cluster_bwt`` with K3 on the
    card prints the host executor's dump byte for byte, K3 launched once.
-18. no_native: the port as if its native library had failed to build
+19. no_native: the port as if its native library had failed to build
    (``native.available()`` False and every binding raising, restored
    afterwards), on the paper-shape dataset: K3 on each collection's
    numpy-planned stream (``_plan_python``: every mixed cluster of at most
@@ -161,15 +173,18 @@ from lime_tpu_torch.formats.arrays import (  # noqa: E402
 from lime_tpu_torch.formats.fasta import write_fasta  # noqa: E402
 from lime_tpu_torch.index import build_index  # noqa: E402
 from lime_tpu_torch.index import torch_builder  # noqa: E402
-from lime_tpu_torch.host import PACK_EMIT_BIT, PACK_M_BIT  # noqa: E402
+from lime_tpu_torch.host import (  # noqa: E402
+    B_BLK, C_BLK, K, PACK_EMIT_BIT, PACK_M_BIT, PR)
 from lime_tpu_torch.ops import banded_kernels as bk  # noqa: E402
 from lime_tpu_torch.ops import cuda_build  # noqa: E402
+from lime_tpu_torch.ops import dense_kernels  # noqa: E402
 from lime_tpu_torch.ops import fused_pipeline  # noqa: E402
 from lime_tpu_torch.ops import pair_kernels as pk  # noqa: E402
 from lime_tpu_torch.ops import pair_score as tps  # noqa: E402
 from lime_tpu_torch.constants import (  # noqa: E402
     IUPAC_WATERFALL_PAIRS, SYMBOL_RANK_LUT)
-from lime_tpu_torch.ops.dense_score import dense_score_into  # noqa: E402
+from lime_tpu_torch.ops.dense_score import (  # noqa: E402
+    _dense_chunk, _dense_rows, dense_score_into)
 from lime_tpu_torch.ops.classify_torch import (  # noqa: E402
     _classify_program_planes, _unpack_triplet, alloc_planes)
 from lime_tpu_torch.ops.cluster_scan import find_clusters  # noqa: E402
@@ -201,6 +216,9 @@ REPLACES = {"scan16": "lime_tpu/ops/pallas_kernels.py:311",
 SOURCE = {"scan16": "pair_hits", "scan64": "pair_hits", "band": "pair_hits",
           "banded": "banded_pairs"}
 CAP_OF = {"scan16": 16, "scan64": 64, "band": 255}
+#: the kernels whose launches ``[blocked]`` and ``[host_share]`` count:
+#: the Pallas kernels' and the dense kernel, which replaces XLA ops
+KERNELS = (*REPLACES, "dense")
 #: the H100 SXM's device-memory rate (NVIDIA's data sheet)
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 
@@ -253,16 +271,20 @@ def ptxas_usage(ptxas: str) -> dict:
 def phase_build():
     t0 = time.perf_counter()
     for name, ptxas in cuda_build.compile_all(
-            ["pair_hits", "banded_pairs"], verbose=True).items():
+            ["pair_hits", "banded_pairs", "dense_pairs"],
+            verbose=True).items():
         log(f"[build] {name}: {ptxas.strip()}")
         for kernel, use in ptxas_usage(ptxas).items():
-            if "banded_sim_kernel" in kernel:
-                acc = "int8_t" if "banded_sim_kernelIa" in kernel \
-                    else "int32_t"
-                log(f"[build] K3 banded_sim_kernel<{acc}>: {use}")
+            for base, what in (("banded_sim_kernel", "K3 banded_sim_kernel"),
+                               ("dense_pairs_kernel", "dense_pairs_kernel")):
+                if base in kernel:
+                    acc = "int8_t" if f"{base}Ia" in kernel else "int32_t"
+                    log(f"[build] {what}<{acc}>: {use}")
     pk.build()
     bk.build()
-    log(f"[build] pair-hit kernels and K3 built and loaded in "
+    dense_kernels.build()
+    log(f"[build] pair-hit kernels, K3 and the dense kernel built and "
+        f"loaded in "
         f"{time.perf_counter() - t0:.2f} s ({cuda_build.BUILD_DIR})")
 
 
@@ -466,6 +488,11 @@ def drive(label: str, ds, cfg, ref_csv: str, card: str, dev, counters,
     if stats["planner"] != planner:
         raise AssertionError(f"[{label}] planner {stats['planner']}, "
                              f"{planner} expected")
+    if (dense_kernels in counters and cfg.fused
+            and launches["dense"] != stats["counts"]["dense_launches"]):
+        raise AssertionError(f"[{label}] {launches['dense']} dense kernel "
+                             f"launches, the run counted "
+                             f"{stats['counts']['dense_launches']}")
     log(f"[{label}] run_paired(device='{dev}'): {wall:.3f} s wall = "
         f"{ds.num_reads / wall:.0f} reads/s; planner {planner}; "
         f"phases: {phases}; peak "
@@ -492,11 +519,15 @@ def phase_e2e(pairs: int, card: str, dev: torch.device):
                             LimeConfig())
     log(f"[e2e] host reference CSV in {time.perf_counter() - t0:.1f} s")
     launches, out_csv = drive("e2e", ds, LimeConfig(fused=True), ref_csv,
-                              card, dev, [pk])
-    for name in pk.LAUNCHES:
+                              card, dev, [pk, dense_kernels])
+    for name in launches:
         if dev.type == "cuda" and launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  "fused serving path")
+    dense_chunks = fused_pipeline.LAST_RUN["dense_chunks"]
+    if dev.type == "cuda" and launches["dense"] != dense_chunks:
+        raise AssertionError(f"{launches['dense']} dense kernel launches "
+                             f"for {dense_chunks} dense chunks")
     origins = compute_truth(ds.root, ds.num_reads, ds.num_genomes,
                             GENOME_LEN)
     acc = reference.accuracy(out_csv, origins,
@@ -706,6 +737,138 @@ def phase_banded_kernel(ds, card: str, dev: torch.device, n: int = 1 << 22):
             "banded_path_bound_ms": round(planner["bound_ms"], 6)}
 
 
+def _dense_plan(fasta: str, ds, g_pad: int) -> list:
+    """One collection's dense chunks as ``run_fused`` plans and packs
+    them (host arrays)."""
+    da, ebwt = open_da(fasta), open_ebwt(fasta)
+    den_s, den_l = fused_pipeline._plan_pairs(
+        open_lcp(fasta), da, ebwt, ds.num_reads, ds.num_genomes,
+        LimeConfig(fused=True))[4:6]
+    return host.pack_chunks(den_s, den_l, da, ebwt, ds.num_reads,
+                            ds.num_genomes, g_pad)[0]
+
+
+def _dense_chain(plane, chunk, f: int, g_pad: int, nonzero=None) -> None:
+    """The plain version's torch chain on ``chunk`` into ``plane``, on
+    their device: :func:`_dense_rows` and one row scatter-add a column
+    tile, the path the dense kernel replaced on the card.  Each tile's
+    nonzero scores (the kernel's adds) are appended to ``nonzero`` as
+    device counts."""
+    ridx, gidx, cmap, rid = chunk
+    for c0, add in _dense_rows(ridx, gidx, cmap, B_BLK, C_BLK, PR, f,
+                               g_pad):
+        plane[:, c0:c0 + add.shape[1]].index_add_(0, rid,
+                                                  add.to(plane.dtype))
+        if nonzero is not None:
+            nonzero.append(torch.count_nonzero(add))
+
+
+def phase_dense_kernel(ds, card: str, dev: torch.device,
+                       launches: dict) -> dict:
+    """The dense kernel on every dense chunk of the four collections (the
+    chunks ``[e2e]`` launched it on, one launch each): its int8 plane
+    against the plain version's chain on the card and, for the 1F
+    collection, against the plain version on the CPU; then both timed
+    beside the bound."""
+    cfg = LimeConfig(fused=True)
+    R = ds.num_reads
+    g_pad = fused_pipeline._g_pad_for(ds.num_genomes)
+    f = (4 if cfg.use_ebwt else 1) * K
+    shape = (fused_pipeline._r_pad_for(R), g_pad)
+    plane = torch.zeros(shape, dtype=torch.int8, device=dev)
+    chain = torch.zeros(shape, dtype=torch.int8, device=dev)
+    status = dense_kernels.new_status(dev)
+    pads = (B_BLK * PR * f, C_BLK * g_pad * f)
+    tot = {"chunks": 0, "cells": 0, "nonzero": 0, "bytes": 0, "ms": 0.0,
+           "graph_ms": 0.0, "plain_ms": 0.0}
+    cpu_ms = None
+    for i, fasta in enumerate(ds.collections):
+        name = os.path.basename(fasta)
+        host_chunks = _dense_plan(fasta, ds, g_pad)
+        chunks = [tuple(torch.from_numpy(a).to(dev) for a in c)
+                  for c in host_chunks]
+        plane.zero_()
+        chain.zero_()
+        nonzero = []
+        for c in chunks:
+            _dense_chunk(plane, *c, B_BLK, C_BLK, PR, f, g_pad, status)
+            _dense_chain(chain, c, f, g_pad, nonzero)
+        cells = dense_kernels.take(status)
+        nnz = int(torch.stack(nonzero).sum().item()) if nonzero else 0
+        if not torch.equal(plane, chain):
+            bad = int(torch.count_nonzero(plane != chain).item())
+            raise AssertionError(f"[kernels] dense on {name}: the kernel's "
+                                 f"plane differs from the chain's in {bad} "
+                                 "cells")
+        if i == 0:
+            cpu = torch.zeros(shape, dtype=torch.int8)
+            st_cpu = dense_kernels.new_status(torch.device("cpu"))
+            t0 = time.perf_counter()
+            for c in host_chunks:
+                _dense_chunk(cpu, *(torch.from_numpy(a) for a in c), B_BLK,
+                             C_BLK, PR, f, g_pad, st_cpu)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            cpu_cells = dense_kernels.take(st_cpu)
+            if not torch.equal(plane.cpu(), cpu) or cpu_cells != cells:
+                raise AssertionError(f"[kernels] dense on {name}: the "
+                                     f"kernel's plane or its {cells} cells "
+                                     f"differ from the CPU plain version's "
+                                     f"({cpu_cells} cells)")
+            del cpu
+        # 4 B a real triple, cmap and rid; 2 B a nonzero add (read and
+        # written once)
+        triples = sum(int(np.count_nonzero(c[0] != pads[0]))
+                      + int(np.count_nonzero(c[1] != pads[1]))
+                      for c in host_chunks)
+        nbytes = 4 * (triples + len(chunks) * (B_BLK + B_BLK * PR)) \
+            + 2 * nnz
+
+        def run(chunks=chunks):
+            for c in chunks:
+                _dense_chunk(plane, *c, B_BLK, C_BLK, PR, f, g_pad, status)
+
+        def run_chain(chunks=chunks):
+            for c in chunks:
+                _dense_chain(chain, c, f, g_pad)
+
+        ms, g_ms = event_ms(run), graph_ms([run])
+        plain_ms = event_ms(run_chain, reps=1)
+        dense_kernels.take(status)
+        bound = bytes_bound_ms(nbytes)
+        for key, v in (("chunks", len(chunks)), ("cells", cells),
+                       ("nonzero", nnz), ("bytes", nbytes), ("ms", ms),
+                       ("graph_ms", g_ms), ("plain_ms", plain_ms)):
+            tot[key] += v
+        cpu_note = (f"; CPU plain version equal, {cpu_ms:.1f} ms"
+                    if i == 0 else "")
+        log(f"[kernels] dense on {name}: {len(chunks)} chunks at G_pad "
+            f"{g_pad}, {cells} cells scored, {nnz} nonzero adds, {triples} "
+            f"triples: exact against the chain on the card{cpu_note}; "
+            f"kernel {ms:.4f} ms per call ({share(bound, ms)} of the "
+            f"{bound:.6f} ms bound), {g_ms:.4f} ms in a graph "
+            f"({share(bound, g_ms)}); chain {plain_ms:.3f} ms ({card})")
+        del chunks
+    if dev.type == "cuda" and tot["chunks"] != launches["dense"]:
+        raise AssertionError(f"dense: {tot['chunks']} planned chunks, "
+                             f"{launches['dense']} launches on [e2e]")
+    bound = bytes_bound_ms(tot["bytes"])
+    log(f"[kernels] dense summed over the four collections: "
+        f"{tot['chunks']} chunks, kernel {tot['ms']:.4f} ms per call, "
+        f"{tot['graph_ms']:.4f} ms in graphs ({share(bound, tot['graph_ms'])}"
+        f" of the {bound:.6f} ms bound); chain {tot['plain_ms']:.3f} ms "
+        f"({card})")
+    del plane, chain
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"max_abs_err": 0, "ms": round(tot["ms"], 4),
+            "graph_ms": round(tot["graph_ms"], 4),
+            "plain_ms": round(tot["plain_ms"], 4),
+            "cpu_plain_1f_ms": round(cpu_ms, 1),
+            "bound_ms": round(bound, 6), "bound_by": "bytes",
+            "library_ms": None, "chunks": tot["chunks"],
+            "cells": tot["cells"], "nonzero_adds": tot["nonzero"]}
+
+
 @contextlib.contextmanager
 def environ(env: dict):
     """Set the variables ``env`` for the ``with`` body, then restore."""
@@ -730,7 +893,7 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
     runs = {"blocked": {"LIME_HBM_BUDGET": str(1 << 30)},
             "blocked_passes": {"LIME_HBM_BUDGET": str(1 << 30),
                                "LIME_STREAM_BUDGET": str(est // 2 + 1)}}
-    out = {name: {} for name in REPLACES}
+    out = {name: {} for name in KERNELS}
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(dev)
@@ -740,7 +903,7 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
     for label, env in runs.items():
         with environ(env):
             launches, _ = drive(label, ds, LimeConfig(fused=True), ref_csv,
-                                card, dev, [pk, bk])
+                                card, dev, [pk, bk, dense_kernels])
         st = fused_pipeline.LAST_RUN
         want = dict(zip(CAP_OF, st["launches_per_bucket"]))
         pair = {name: launches[name] for name in CAP_OF}
@@ -748,13 +911,17 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
         if (st["engine"] != "blocked" or (st["n_pass"] >= 2) != passes
                 or pair != want or not all(pair.values())
                 or launches["banded"]
+                or not 0 < st["dense_chunks"] <= launches["dense"]
+                <= st["dense_chunks"] * st["blocks"]
                 or (not passes and list(want.values()) != [
                     n * st["blocks"] for n in st["chunks_per_bucket"]])):
             raise AssertionError(
                 f"[{label}] engine {st['engine']}, {st['n_pass']} passes, "
                 f"{st.get('blocks')} blocks, chunks "
-                f"{st.get('chunks_per_bucket')}: launches {launches}, "
-                f"the plan implies {want} and no K3")
+                f"{st.get('chunks_per_bucket')}, dense chunks "
+                f"{st['dense_chunks']}: launches {launches}, the plan "
+                f"implies {want}, no K3 and each dense chunk once per row "
+                f"block it reaches")
         mem, res = st["memory"], st["resident_bytes"]
         stack = len(ds.collections) * st["B"] * fused_pipeline._g_pad_for(
             ds.num_genomes)
@@ -764,12 +931,14 @@ def phase_blocked(ds, ref_csv: str, card: str, dev: torch.device,
             f"{st['n_pass']} owner passes (streams estimated at {est} B); "
             f"pair-kernel launches {pair} = chunks "
             f"{st['chunks_per_bucket']} x blocks of their pass; K3 "
-            f"launches 0; stack {stack} B; resident pair "
+            f"launches 0; dense kernel launches {launches['dense']} "
+            f"({st['dense_chunks']} dense chunks, {st['blocks']} blocks); "
+            f"stack {stack} B; resident pair "
             f"streams {res['pair_streams']} B (largest pass), dense chunks "
             f"{res['dense_chunks']} B; peak device memory {peak} B, "
             f"[e2e] {e2e_peak} B ({peak - e2e_peak:+d} B); peak less stack, "
             f"streams and dense chunks {rest} B ({card})")
-        for name in REPLACES:
+        for name in KERNELS:
             out[name]["owner_passes" if passes else "one_pass"] = \
                 launches[name]
     return out
@@ -783,12 +952,12 @@ def phase_host_share(ds, ref_csv: str, card: str, dev: torch.device,
     before it."""
     runs = {"hybrid": (0.5, {}), "all_host": (1.0, {}),
             "hybrid_blocked": (0.5, {"LIME_HBM_BUDGET": str(1 << 30)})}
-    out = {name: {} for name in REPLACES}
+    out = {name: {} for name in KERNELS}
     for label, (frac, env) in runs.items():
         with environ(env):
             launches, _ = drive(label, ds,
                                 LimeConfig(fused=True, host_frac=frac),
-                                ref_csv, card, dev, [pk, bk])
+                                ref_csv, card, dev, [pk, bk, dense_kernels])
         st = fused_pipeline.LAST_RUN
         pair = [launches[name] for name in CAP_OF]
         planned = st["chunks_per_bucket"]
@@ -803,7 +972,11 @@ def phase_host_share(ds, ref_csv: str, card: str, dev: torch.device,
         else:
             ok = (st["engine"] == "blocked" and st["blocks"] >= 2
                   and pair == st["launches_per_bucket"] and any(pair))
-        if (not ok or launches["banded"]
+        # each dense chunk once, or once per row block it reaches
+        dense_ok = (launches["dense"] == st["dense_chunks"]
+                    if st["engine"] != "blocked" else st["dense_chunks"]
+                    <= launches["dense"] <= st["dense_chunks"] * st["blocks"])
+        if (not ok or not dense_ok or launches["banded"]
                 or st["host_num"] != round(frac * 256)):
             raise AssertionError(
                 f"[{label}] engine {st['engine']}, host share "
@@ -817,10 +990,11 @@ def phase_host_share(ds, ref_csv: str, card: str, dev: torch.device,
         log(f"[{label}] host share {st['host_num']}/256, engine "
             f"{st['engine']}: pair-kernel launches {pair} (chunks {planned}"
             f", [e2e] {e2e_chunks}), K3 0{blocked}; dense chunks "
-            f"{st['dense_chunks']}; delta-COO chains {st['chain_bytes']} B, "
+            f"{st['dense_chunks']}, dense kernel launches "
+            f"{launches['dense']}; delta-COO chains {st['chain_bytes']} B, "
             f"host planes {st['host_plane_bytes']} B; peak device memory "
             f"{peak} B, [e2e] {e2e_peak} B ({peak - e2e_peak:+d} B) ({card})")
-        for name in REPLACES:
+        for name in KERNELS:
             out[name][label] = launches[name]
     return out
 
@@ -1478,6 +1652,8 @@ def main(argv=None) -> int:
     records = timed("kernels", phase_kernels, ds, smi, dev, launches)
     records["banded"] = timed("kernels_banded", phase_banded_kernel, ds,
                               smi, dev)
+    dense = timed("kernels_dense", phase_dense_kernel, ds, smi, dev,
+                  launches)
     staged, _ = timed("staged", drive, "staged", ds, LimeConfig(), ref_csv,
                       smi, dev, [bk])
     banded, _ = timed("banded", drive, "banded", ds,
@@ -1523,6 +1699,13 @@ def main(argv=None) -> int:
                 "dump_sim_path_launches": dump_sim[k],
                 "no_native_path_launches": no_native[k]}
                for k in REPLACES]
+    kernels.append({"name": "dense", "route": "cuda",
+                    "source": "lime_tpu_torch/csrc/dense_pairs.cu",
+                    "replaces": "lime_tpu/ops/dense_score.py:67 (XLA ops, "
+                                "no Pallas kernel)",
+                    "launches": launches["dense"], **dense,
+                    "blocked_path_launches": blocked["dense"],
+                    "host_share_path_launches": host_share["dense"]})
     log(f"[memory] {memory_report()}".replace("\n", "; "))
     log("[done] phase times: " + " ".join(f"{k}={v:.1f}s"
                                           for k, v in times.items()))

@@ -2,7 +2,8 @@
 GPU, in one process.
 
     python -m lime_tpu_torch.kernel_ab --other DIR
-        [--kernel pair|banded|replay] [--pairs N]
+        [--kernel pair|banded|replay|dense] [--pairs N]
+        [--index PATH --reads R --genomes G]
 
 ``DIR`` is the root of another checkout of this repository (for example
 a ``git archive`` of an earlier commit, unpacked into a git-ignored
@@ -33,6 +34,14 @@ line a JSON record of both sides' times.
   chunk, into one int8 plane, each block checked equal between the
   sides.  Times are of all 8 blocks' replays, per call only (the
   replays may wait for the device, which a graph cannot hold).
+- ``dense``: every dense chunk of one collection index (``--index``, a
+  collection of ``--reads`` reads and ``--genomes`` genomes, planned as
+  the fused path plans it) by both checkouts' ``ops/dense_score.
+  _dense_chunk`` into one int8 plane of the run's shape, checked equal
+  between the sides, then timed per call (all the collection's chunks
+  in one timing, so the host's launch time counts as on the main path)
+  and given per chunk; this checkout's launches also as a CUDA-graph
+  replay (the kernel's device time).
 
 The other checkout builds its kernel into its own ``build/``.
 """
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import inspect
 import json
 import os
 import subprocess
@@ -181,12 +191,20 @@ def _banded_ab(other_root: str, pairs: int, smi: str) -> dict:
 REPLAY_BLOCK = 131_072
 
 
+def _taken(fn, **kw) -> dict:
+    """The arguments of ``kw`` that ``fn`` takes: a checkout older than
+    the dense kernel takes neither a chunk's sorted host rows nor a
+    status."""
+    params = inspect.signature(fn).parameters
+    return {k: v for k, v in kw.items() if k in params}
+
+
 def _replay_ab(other_root: str, pairs: int, smi: str,
                dev: torch.device = torch.device("cuda")) -> dict:
     from .config import LimeConfig
     from .formats.arrays import open_da, open_ebwt, open_lcp
     from .host import B_BLK, C_BLK, K, PR, _g_pad_for, pack_chunks
-    from .ops import dense_score, pair_score
+    from .ops import dense_kernels, dense_score, pair_score
     from .ops.fused_pipeline import _plan_pairs
     from .synth_big import paper_dataset
 
@@ -205,12 +223,14 @@ def _replay_ab(other_root: str, pairs: int, smi: str,
         open_lcp(fasta), da, ebwt, R, G, cfg)[:6]
     keep = []
     uploaded = pair_score.pair_upload(arrays, chunks, dev, keep)
-    dense = [tuple(pair_score.to_device(a, dev, keep) for a in c)
+    dense = [(tuple(pair_score.to_device(a, dev, keep) for a in c),
+              np.unique(c[3]))
              for c in pack_chunks(den_s, den_l, da, ebwt, R, G, g_pad)[0]]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     keep.clear()
     B, f_feat = REPLAY_BLOCK, (4 if cfg.use_ebwt else 1) * K
+    status = dense_kernels.new_status(dev)
     bases = range(0, R + 1, B)
     stack = torch.zeros((1, B, g_pad), dtype=torch.int8, device=dev)
 
@@ -221,10 +241,11 @@ def _replay_ab(other_root: str, pairs: int, smi: str,
                 ps.pair_score_packed_offset(stack, 0, uploaded, chunks,
                                             windows, row_bits, base)
             else:
-                for ridx, gidx, cmap, rid in dense:
-                    dsc._dense_chunk_offset(stack, 0, ridx, gidx, cmap, rid,
-                                            base, B_BLK, C_BLK, PR, f_feat,
-                                            g_pad)
+                for chunk, rows in dense:
+                    dsc._dense_chunk_offset(
+                        stack, 0, *chunk, base, B_BLK, C_BLK, PR, f_feat,
+                        g_pad, **_taken(dsc._dense_chunk_offset,
+                                        rid_sorted=rows, status=status))
 
     for what in ("pair", "dense"):
         for base in bases:
@@ -237,6 +258,7 @@ def _replay_ab(other_root: str, pairs: int, smi: str,
                 raise AssertionError(f"{what} replay at block {base}: the "
                                      "two sides differ")
         del got
+    dense_kernels.take(status)
     rec = {"stream": os.path.basename(fasta), "blocks": len(bases),
            "block_reads": B, "pair_chunks": len(chunks),
            "dense_chunks": len(dense)}
@@ -253,6 +275,72 @@ def _replay_ab(other_root: str, pairs: int, smi: str,
         rec[f"{what}_speedup"] = round(float(o / t), 3)
         print(f"[ab] {what} replays: this checkout {rec[f'{what}_speedup']}x "
               f"against the other ({smi})", flush=True)
+    dense_kernels.take(status)
+    return rec
+
+
+def _dense_ab(other_root: str, index: str, R: int, G: int, smi: str,
+              dev: torch.device = torch.device("cuda")) -> dict:
+    from .config import LimeConfig
+    from .formats.arrays import open_da, open_ebwt, open_lcp
+    from .host import B_BLK, C_BLK, K, PR, _g_pad_for, _r_pad_for, pack_chunks
+    from .ops import dense_kernels, dense_score, pair_score
+    from .ops.fused_pipeline import _plan_pairs
+
+    cfg = LimeConfig(fused=True)
+    g_pad = _g_pad_for(G)
+    da, ebwt = open_da(index), open_ebwt(index)
+    den_s, den_l = _plan_pairs(open_lcp(index), da, ebwt, R, G, cfg)[4:6]
+    keep = []
+    dense = [tuple(pair_score.to_device(a, dev, keep) for a in c)
+             for c in pack_chunks(den_s, den_l, da, ebwt, R, G, g_pad)[0]]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    keep.clear()
+    f_feat = (4 if cfg.use_ebwt else 1) * K
+    sides = {"other": load_other(other_root, "dense_score"),
+             "this": dense_score}
+    plane = torch.zeros((_r_pad_for(R), g_pad), dtype=torch.int8,
+                        device=dev)
+    status = dense_kernels.new_status(dev)
+    # faults are read once a timing, not once a chunk
+    kw = {side: _taken(m._dense_chunk, status=status)
+          for side, m in sides.items()}
+
+    def run(side):
+        for chunk in dense:
+            sides[side]._dense_chunk(plane, *chunk, B_BLK, C_BLK, PR,
+                                     f_feat, g_pad, **kw[side])
+
+    got = {}
+    for side in sides:
+        plane.zero_()
+        run(side)
+        got[side] = plane[:R].clone()
+    dense_kernels.take(status)
+    if not torch.equal(got["other"], got["this"]):
+        raise AssertionError("dense chunks: the two sides' planes differ")
+    del got
+    rec = {"index": os.path.basename(index), "reads": R, "genomes": G,
+           "g_pad": g_pad, "chunks": len(dense)}
+    for side in ORDER:
+        ms = event_ms(lambda: run(side))
+        rec.setdefault(f"{side}_ms", []).append(round(ms, 3))
+        print(f"[ab] dense chunks of {rec['index']} at G_pad {g_pad}, "
+              f"{side}: {len(dense)} chunks in {ms:.3f} ms, "
+              f"{ms / len(dense):.4f} ms each ({smi})", flush=True)
+    # this side's device time alone: its launches replayed as a graph
+    # (the other side's chain allocates, which a graph cannot hold)
+    rec["this_graph_chunk_ms"] = round(
+        graph_ms([lambda: run("this")]) / len(dense), 4)
+    dense_kernels.take(status)
+    o, t = (float(np.mean(rec[f"{side}_ms"])) for side in ("other",
+                                                           "this"))
+    rec["other_chunk_ms"] = round(o / len(dense), 4)
+    rec["this_chunk_ms"] = round(t / len(dense), 4)
+    rec["speedup"] = round(o / t, 3)
+    print(f"[ab] dense chunks: this checkout {rec['speedup']}x against "
+          f"the other ({smi})", flush=True)
     return rec
 
 
@@ -260,12 +348,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
-    ap.add_argument("--kernel", choices=("pair", "banded", "replay"),
+    ap.add_argument("--kernel", choices=("pair", "banded", "replay",
+                                         "dense"),
                     default="pair",
                     help="the kernel to compare (default: pair)")
     ap.add_argument("--pairs", type=int, default=1_000_000,
                     help="read pairs of the paper-shape dataset (banded, "
                     "replay)")
+    ap.add_argument("--index", help="collection index (dense)")
+    ap.add_argument("--reads", type=int, help="its reads (dense)")
+    ap.add_argument("--genomes", type=int, help="its genomes (dense)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: this "
@@ -278,8 +370,13 @@ def main(argv=None) -> int:
         out = {"pair_hits_ab": _pair_ab(args.other, smi)}
     elif args.kernel == "banded":
         out = {"banded_ab": _banded_ab(args.other, args.pairs, smi)}
-    else:
+    elif args.kernel == "replay":
         out = {"replay_ab": _replay_ab(args.other, args.pairs, smi)}
+    else:
+        if None in (args.index, args.reads, args.genomes):
+            ap.error("--kernel dense needs --index, --reads and --genomes")
+        out = {"dense_ab": _dense_ab(args.other, args.index, args.reads,
+                                     args.genomes, smi)}
     print(smi)
     print(json.dumps(out), flush=True)
     return 0

@@ -1,6 +1,5 @@
-"""Operators of the port: the pair-hit and banded kernels, packed and
-one-byte-per-row pair scoring, dense histogram matmul, the classify
-program and the fused pipeline on the device; on the host, copies of
+"""Operators of the port: the pair-hit, banded and dense-cluster kernels,
+packed and one-byte-per-row pair scoring, the classify program and the fused pipeline on the device; on the host, copies of
 ``lime_tpu``'s cluster scan, numpy exact scorer and numpy cascade.
 
 ``find_clusters``, ``normalize_scores``, ``score_clusters`` and

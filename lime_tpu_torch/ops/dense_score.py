@@ -1,23 +1,30 @@
-"""Histogram-matmul scoring of genome-dense clusters (torch port of
+"""Scoring of genome-dense clusters (torch port of
 ``lime_tpu/ops/dense_score.py``).
 
 With per-cluster indicator features ``phi_r[s, k] = [count_r(s) > k]``
 and ``psi_g[s, k] = [count_g(s) > k]`` the symbol-aware score
 ``sum_s min(count_r(s), count_g(s))`` is ``phi_r . psi_g``.  The host
 packer (:func:`lime_tpu_torch.host.pack_chunks`) emits fixed-shape chunks
-of flat feature indices; per chunk the device scatters them into the two
+of flat feature indices.
+
+On a CUDA plane one hand-written kernel scores a chunk
+(:mod:`.dense_kernels`, ``csrc/dense_pairs.cu``): F = nsym * K <= 32, so
+each lane's and each genome's features are one 32-bit mask and the score
+is their popcount, computed for the lanes that carry a read against
+their own cluster's genome columns only, and added straight into the
+plane.
+
+On a CPU plane the plain version runs ``lime_tpu``'s chain in torch
+(:func:`_dense_rows`): the device scatters the triples into the two
 feature tensors, runs one batched matmul and scatter-adds the rows into
-the int8 plane.  These are plain torch ops (on the TPU they were XLA's,
-outside any Pallas kernel).
-
-The features are float32: inputs are 0/1 and every sum is at most
-F = 32, so the product is exact (float32 matmuls on the card run in full
-float32 unless TF32 is enabled, and 0/1 sums <= 32 are exact in TF32
-too).
-
-Past 3,456 genome columns the product runs in column tiles
-(:func:`dense_tile_for`), each built from the genome triples of its
-columns, so no feature tensor of the database's whole width exists.
+the plane.  The features are float32: inputs are 0/1 and every sum is at
+most F = 32, so the product is exact.  Past 3,456 genome columns the
+product runs in column tiles (:func:`dense_tile_for`), each built from
+the genome triples of its columns, so no feature tensor of the
+database's whole width exists.  Both versions count the cells the
+kernel scores (lanes that carry a read times their cluster's genomes)
+into a status of :func:`.dense_kernels.new_status`, which
+:func:`.dense_kernels.take` reads; the kernel's faults go there too.
 
 In the row-blocked mode each chunk uploads once per run and is replayed
 once per row block by a plain loop (:func:`_dense_chunk_offset`);
@@ -34,24 +41,17 @@ import numpy as np
 import torch
 
 from ..host import B_BLK, C_BLK, K, PR, pack_chunks
+from . import dense_kernels
 
 
 def dense_tile_for(g_pad: int) -> int:
-    """Genome columns one dense product covers: the whole width up to
-    3,456 columns (the G_pad of a 3,423-genome database), else the
-    fewest equal tiles of at most that, multiples of 128 (the last one
+    """Genome columns one product of the plain version covers: the whole
+    width up to 3,456 columns (the G_pad of a 3,423-genome database),
+    else the fewest equal tiles of at most that, multiples of 128 (the last one
     narrower), so that one chunk's feature tensors and products stay the
     size they have at G_pad 3,456 whatever the width."""
     n = -(-g_pad // 3456)
     return -(-g_pad // (n * 128)) * 128
-
-
-def dense_columns(g_pad: int) -> int:
-    """Genome columns one read lane's dense products compute: the tiles
-    of :func:`dense_tile_for` summed, each as wide as the first (25,600
-    at G_pad 24,832), ``g_pad`` up to 3,456."""
-    tile = dense_tile_for(g_pad)
-    return -(-g_pad // tile) * tile
 
 
 def _dense_rows(ridx: torch.Tensor, gidx: torch.Tensor, cmap: torch.Tensor,
@@ -110,42 +110,85 @@ def _dense_rows(ridx: torch.Tensor, gidx: torch.Tensor, cmap: torch.Tensor,
         yield c0, rows
 
 
+def _count_plain(status: torch.Tensor, ridx: torch.Tensor,
+                 gidx: torch.Tensor, cmap: torch.Tensor,
+                 lane_ok: torch.Tensor, b_blk: int, c_blk: int, pr: int,
+                 f: int, g_pad: int) -> None:
+    """Add to ``status`` the cells the kernel scores in a chunk:
+    per entry, its lanes that carry a read triple (and ``lane_ok``) times
+    its cluster's genomes, counted as the kernel counts them, one per run
+    of a (cluster, genome) pair's triples."""
+    lanes = ridx[ridx != b_blk * pr * f].to(torch.int64) // f
+    has = torch.zeros(b_blk * pr, dtype=torch.bool, device=ridx.device)
+    has[lanes] = True
+    keys = gidx[gidx != c_blk * g_pad * f].to(torch.int64) // f
+    head = torch.ones_like(keys, dtype=torch.bool)
+    head[1:] = keys[1:] != keys[:-1]
+    runs = keys[head] // g_pad
+    genomes = torch.bincount(runs, minlength=c_blk)
+    cells = ((has & lane_ok).view(b_blk, pr).sum(1)
+             * genomes[cmap.to(torch.int64)]).sum()
+    status[0] += cells
+
+
 def _dense_chunk(sim: torch.Tensor, ridx: torch.Tensor, gidx: torch.Tensor,
                  cmap: torch.Tensor, rid: torch.Tensor, b_blk: int,
-                 c_blk: int, pr: int, f: int, g_pad: int) -> None:
-    """One fixed-shape chunk: scores, then per column tile one row
-    scatter-add into ``sim`` (in place).  Pad entries' rows (the
-    ``num_reads`` drop row) add zero."""
+                 c_blk: int, pr: int, f: int, g_pad: int,
+                 status: torch.Tensor) -> None:
+    """One fixed-shape chunk into ``sim`` (in place): on the card the
+    kernel; on the CPU per column tile one row scatter-add of
+    :func:`_dense_rows`, whose pad entries' rows (the ``num_reads`` drop
+    row) add zero.
+
+    ``status`` (:func:`.dense_kernels.new_status` on ``sim``'s device)
+    gathers the cells scored and the kernel's faults for the caller to
+    :func:`.dense_kernels.take` after its own synchronisation."""
+    if sim.device.type == "cuda":
+        dense_kernels.dense_pairs_into(sim, ridx, gidx, cmap, rid, b_blk,
+                                       c_blk, pr, f, g_pad, status)
+        return
     for c0, add in _dense_rows(ridx, gidx, cmap, b_blk, c_blk, pr, f,
                                g_pad):
         sim[:, c0:c0 + add.shape[1]].index_add_(0, rid, add.to(sim.dtype))
+    _count_plain(status, ridx, gidx, cmap,
+                 torch.ones_like(rid, dtype=torch.bool), b_blk, c_blk, pr,
+                 f, g_pad)
 
 
 def _dense_chunk_offset(stack: torch.Tensor, fi: int, ridx: torch.Tensor,
                         gidx: torch.Tensor, cmap: torch.Tensor,
                         rid: torch.Tensor, row_base: int, b_blk: int,
-                        c_blk: int, pr: int, f: int, g_pad: int) -> bool:
+                        c_blk: int, pr: int, f: int, g_pad: int,
+                        rid_sorted: np.ndarray,
+                        status: torch.Tensor) -> bool:
     """:func:`_dense_chunk` into plane ``fi`` of the ``(F, B, g_pad)``
-    row-block stack, whose row 0 is read ``row_base``; False, with no
-    product computed, where no row of the chunk is in the block.
+    row-block stack, whose row 0 is read ``row_base``; False, with
+    nothing launched or computed, where no row of the chunk is in the
+    block, which ``rid_sorted`` (the chunk's ``rid`` values, sorted on
+    the host) answers without a wait.  ``status`` as for
+    :func:`_dense_chunk`.
 
-    Only the rows inside the block are added (most rows of a chunk fall
-    outside it when there are many blocks); selecting them waits for the
-    device, once a chunk.  Adding zero rows for the others instead, with
-    no wait, measured slower on an H100 (PERF.md): eight times the atomic
-    adds.  A chunk with no row in the block launches nothing: torch's
-    CUDA index_add_ into a plane of over 2^31 cells launches an empty
-    grid for an empty selection, an error.
+    On the card the kernel drops the lanes outside the block.  On the CPU
+    only the rows inside the block are added.
     """
-    local = rid.to(torch.int64) - row_base
-    sel = torch.nonzero((local >= 0) & (local < stack.shape[1])).squeeze(1)
-    if not sel.shape[0]:
+    at = np.searchsorted(rid_sorted, row_base)
+    if at == len(rid_sorted) or rid_sorted[at] >= row_base + stack.shape[1]:
         return False
+    if stack.device.type == "cuda":
+        dense_kernels.dense_pairs_into(stack[fi], ridx, gidx, cmap, rid,
+                                       b_blk, c_blk, pr, f, g_pad, status,
+                                       row_base)
+        return True
+    local = rid.to(torch.int64) - row_base
+    inside = (local >= 0) & (local < stack.shape[1])
+    sel = torch.nonzero(inside).squeeze(1)
     local = local[sel]
     for c0, add in _dense_rows(ridx, gidx, cmap, b_blk, c_blk, pr, f,
                                g_pad):
         stack[fi, :, c0:c0 + add.shape[1]].index_add_(
             0, local, add[sel].to(stack.dtype))
+    _count_plain(status, ridx, gidx, cmap, inside, b_blk, c_blk, pr, f,
+                 g_pad)
     return True
 
 
@@ -164,7 +207,10 @@ def dense_score_into(sim: torch.Tensor, starts: np.ndarray,
     chunks, left_s, left_l = pack_chunks(starts, lens, da, ebwt, num_reads,
                                          num_genomes, g_pad)
     f = (4 if ebwt is not None else 1) * K
+    status = dense_kernels.new_status(sim.device)
     for arrs in chunks:
         _dense_chunk(sim, *(torch.from_numpy(a).to(sim.device)
-                            for a in arrs), B_BLK, C_BLK, PR, f, g_pad)
+                            for a in arrs), B_BLK, C_BLK, PR, f, g_pad,
+                     status)
+    dense_kernels.take(status)
     return sim, left_s, left_l

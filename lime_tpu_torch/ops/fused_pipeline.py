@@ -10,8 +10,10 @@ released) scans the index once and routes every alpha-cluster:
   banded engine: ``native.plan_native``'s compacted position stream
   scored by K3 (ops/banded_kernels.py), with density routing
   (``dense_threshold``) sending genome-sparse clusters to the host;
-- genome-dense clusters -> the batched histogram matmul
-  (ops/dense_score.py);
+- genome-dense clusters -> the dense kernel on the card, popcounts of
+  each read lane's and each of its cluster's genomes' feature masks
+  (ops/dense_score.py, ops/dense_kernels.py; the batched histogram
+  matmul on the CPU);
 - IUPAC-degenerate, over-long and matmul-inexpressible clusters -> the
   exact host scorer, as COO corrections that ride the classify program
   (or, past a size cap, a host plane whose nonzeros ship as one
@@ -22,7 +24,7 @@ Without the native library (``native.available()`` False) the run takes
 numpy plan (every mixed cluster of at most 255 rows with no
 IUPAC-degenerate symbol in one K3 stream, genome-dense ones included;
 the rest to the numpy exact scorer as COO corrections), and no pair
-streams, dense matmul or host share.  ``LAST_RUN["planner"]`` says which
+streams, dense path or host share.  ``LAST_RUN["planner"]`` says which
 planner ran.
 
 The host share.  ``host_frac`` (or ``LIME_HOST_FRAC``, which overrides
@@ -33,7 +35,7 @@ scores them into a host plane, shipped as a delta-COO chain
 (:func:`plane_corrections`).  An all-host split (``host_frac`` 1, not
 ``wide_sim``) runs the job shop (:func:`_job_shop`): two host workers
 plan, score and compact one collection each, their pair-heavy clusters
-offloaded to the dense matmul, while this thread issues every upload and
+offloaded to the dense path, while this thread issues every upload and
 launch.  The row-blocked mode keeps one host plane per collection and
 scatters each block's row slice of it into the block's stack.
 
@@ -53,13 +55,15 @@ and fetches its triplet.  That mode splits the budget in two equal
 halves: one for the stack (``B`` leaves half of its half as slack, as
 ``lime_tpu``'s formula does, and the resident dense chunks come out of
 that slack), one for the resident pair streams; ``LIME_HBM_BUDGET`` and
-``LIME_STREAM_BUDGET`` cap each half.  The cascade's and the dense
-chunks' temporaries, which do not grow with ``B``, are held to the size
-they have at G_pad 3,456 whatever the width: the cascade walks read
-blocks of ``classify_torch.cascade_block_for`` (16,384 reads up to that
-width, fewer past it) and the dense products run in genome-column tiles
-of at most 3,456 columns (``dense_score.dense_tile_for``), so they fit
-in ``MEMORY_HEADROOM`` at any width.
+``LIME_STREAM_BUDGET`` cap each half.  The cascade's temporaries, which
+do not grow with ``B``, are held to the size they have at G_pad 3,456
+whatever the width: the cascade walks read blocks of
+``classify_torch.cascade_block_for`` (16,384 reads up to that width,
+fewer past it), so they fit in ``MEMORY_HEADROOM`` at any width.  On the
+card the dense chunks' kernel (``ops/dense_kernels.py``) scores straight
+into the planes with no temporaries; on the CPU their plain version runs
+in genome-column tiles of at most 3,456 columns
+(``dense_score.dense_tile_for``).
 Streams estimated over their half are planned per read-row owner and
 swept in owner passes, each pass uploading only its owner's chunks.
 The banded engine has no blocked
@@ -96,7 +100,8 @@ from .banded_kernels import banded_sim_into
 from .classify_ops import ClassifyResult
 from .classify_torch import (_classify_program_planes, _unpack_triplet,
                              alloc_planes, cascade_block_for)
-from .dense_score import _dense_chunk, _dense_chunk_offset, dense_columns
+from . import dense_kernels
+from .dense_score import _dense_chunk, _dense_chunk_offset
 from .pair_score import (coo_scatter_into, coo_scatter_into_stack,
                          pair_score_packed_into, pair_score_packed_offset,
                          pair_upload, to_device)
@@ -104,9 +109,9 @@ from .pair_score import (coo_scatter_into, coo_scatter_into_stack,
 logger = logging.getLogger("lime_tpu_torch")
 
 #: Device memory kept free beside the score planes: one collection's
-#: packed streams and their unpacked int64 temporaries, the dense chunks'
-#: feature tensors, and the cascade's per-block float32 tiles (the last
-#: two of a size that does not grow past G_pad 3,456).
+#: packed streams and their unpacked int64 temporaries and the cascade's
+#: per-block float32 tiles (of a size that does not grow past G_pad
+#: 3,456); on the card the dense kernel allocates nothing.
 MEMORY_HEADROOM = 8 << 30
 
 #: Statistics of the most recent run: the engine, the host split, per-
@@ -448,15 +453,17 @@ def _plan_pairs(lcp, da, ebwt, num_reads: int, num_genomes: int,
 
 
 def _dispatch_dense(plane: torch.Tensor, d_chunks, f_feat: int, g_pad: int,
-                    keep: list, tally: list, num_reads: int) -> None:
-    """Upload ``pack_chunks``' dense chunks and add each one's matmul
-    into the device ``plane``; each chunk's lanes into ``tally``."""
+                    keep: list, tally: list, num_reads: int,
+                    status: torch.Tensor) -> None:
+    """Upload ``pack_chunks``' dense chunks and add each one's scores
+    into the device ``plane``; each chunk's lanes into ``tally``, its
+    scored cells and faults into ``status``."""
     for lanes in _read_lanes(d_chunks, num_reads):
         _tally(tally, lanes)
     for ridx, gidx, cmap_c, rid_c in d_chunks:
         _dense_chunk(plane, *(to_device(a, plane.device, keep)
                               for a in (ridx, gidx, cmap_c, rid_c)),
-                     B_BLK, C_BLK, PR, f_feat, g_pad)
+                     B_BLK, C_BLK, PR, f_feat, g_pad, status)
 
 
 def _read_lanes(d_chunks, num_reads: int) -> list:
@@ -473,14 +480,18 @@ def _tally(tally: list, lanes: int) -> None:
     tally[1] += B_BLK * PR
 
 
-def _count_dense(timer: PhaseTimer, tally: list, g_pad: int,
-                 cascade_block: int) -> None:
-    """The run's width counters: ``dense_cells``, the read-lane x
-    genome-column cells the dense products compute (every lane of a
-    computed chunk over ``dense_columns(g_pad)``, its tiles summed);
-    ``dense_lanes`` and ``dense_lanes_total`` from ``tally``; the
-    cascade's read block."""
-    timer.count("dense_cells", tally[1] * dense_columns(g_pad))
+def _count_dense(timer: PhaseTimer, tally: list, status: torch.Tensor,
+                 launched: int, cascade_block: int) -> None:
+    """The run's width counters: ``dense_cells``, the cells the dense
+    kernel scored (read lanes that carry a read, in the row block, times
+    their cluster's genomes; the plain version counts the same), read
+    from the run's dense ``status`` after its last synchronisation, which
+    raises on a fault the kernel found; ``dense_launches``, the kernel's
+    launches since the run's start, when ``LAUNCHES["dense"]`` read
+    ``launched``; ``dense_lanes`` and ``dense_lanes_total`` from
+    ``tally``; the cascade's read block."""
+    timer.count("dense_cells", dense_kernels.take(status))
+    timer.count("dense_launches", dense_kernels.LAUNCHES["dense"] - launched)
     timer.count("dense_lanes", tally[0])
     timer.count("dense_lanes_total", tally[1])
     timer.count("cascade_block", cascade_block)
@@ -489,7 +500,9 @@ def _count_dense(timer: PhaseTimer, tally: list, g_pad: int,
 def _width_log(timer: PhaseTimer) -> str:
     """:func:`_count_dense`'s counters, for the run's log line."""
     c = timer.counts
-    return (f"{c['dense_cells']} dense cells, {c['dense_lanes']} of "
+    return (f"{c['dense_cells']} dense cells, "
+            f"{c['dense_launches']} dense kernel launches, "
+            f"{c['dense_lanes']} of "
             f"{c['dense_lanes_total']} lanes carry a read; cascade block "
             f"{c['cascade_block']}")
 
@@ -560,6 +573,8 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
     banded_windows = []  # per collection, 0 = nothing banded
     stats = {"dense_chunks": 0, "chain_bytes": 0, "host_plane_bytes": 0}
     tally = [0, 0]  # dense read lanes carrying a read, all lanes
+    status = dense_kernels.new_status(device)  # dense cells, faults
+    launched = dense_kernels.LAUNCHES["dense"]
     scratch = None  # the host plane the large rescue sets reuse
 
     with timer.phase("score"):
@@ -570,7 +585,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
             lineage, config, num_genomes, g_pad, read_len, device, keep)
         if all_host:
             _job_shop(collections, planes, num_reads, num_genomes, config,
-                      timer, keep, corr, stats, tally)
+                      timer, keep, corr, stats, tally, status)
             indexes = ()
         else:
             indexes = _collections(collections, config, timer)
@@ -609,7 +624,7 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
                         num_genomes, g_pad, timer=timer)
                 with timer.phase("dispatch", args=fi):
                     _dispatch_dense(planes[fi], d_chunks, f_feat, g_pad,
-                                    keep, tally, num_reads)
+                                    keep, tally, num_reads, status)
                 stats["dense_chunks"] += len(d_chunks)
                 if len(left_s):
                     bad_start = np.concatenate([bad_start, left_s])
@@ -667,7 +682,8 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
         keep.clear()
     mem = device_memory_stats(device)
     del buf, planes, packed
-    _count_dense(timer, tally, g_pad, cascade_block_for(block, g_pad))
+    _count_dense(timer, tally, status, launched,
+                 cascade_block_for(block, g_pad))
     LAST_RUN.clear()
     LAST_RUN.update({"engine": ("all_host" if all_host else
                                 "pair" if pair else "banded"),
@@ -688,12 +704,12 @@ def _run_fused_inner(collections: Sequence[str], num_reads: int,
 def _job_shop(collections: Sequence[str], planes: torch.Tensor,
               num_reads: int, num_genomes: int, config: LimeConfig,
               timer: PhaseTimer, keep: list, corr: list,
-              stats: dict, tally: list) -> None:
+              stats: dict, tally: list, status: torch.Tensor) -> None:
     """The all-host split in one block: ``lime_tpu``'s job shop.
 
     Two host workers each take one collection at a time: load, the light
     cluster scan (``native.plan_clusters``, one thread), the pair-heavy
-    clusters packed for the dense matmul, the rest scored by the exact
+    clusters packed for the dense path, the rest scored by the exact
     host scorer (one thread) into a pooled host plane and compacted to a
     delta-COO chain, which hands the plane back zeroed.  The workers do
     host work only: this thread uploads and launches each finished
@@ -753,7 +769,7 @@ def _job_shop(collections: Sequence[str], planes: torch.Tensor,
             d_chunks, res = job.result()
             with timer.phase("dispatch", args=fi):
                 _dispatch_dense(planes[fi], d_chunks, f_feat, g_pad, keep,
-                                tally, num_reads)
+                                tally, num_reads, status)
                 stats["chain_bytes"] += _add_corrections(
                     res, fi, planes[fi], corr, keep, False)
             stats["dense_chunks"] += len(d_chunks)
@@ -860,7 +876,7 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
     default); past it the run is stream-only, and host memory holds the
     planner buffers and the sparse corrections, never an (R, G) matrix.
     An all-host run plans with the light cluster scan (no pair chunks)
-    and offloads its pair-heavy clusters to the dense matmul, unless
+    and offloads its pair-heavy clusters to the dense path, unless
     ``LIME_DENSE_OFFLOAD=0`` or ``wide_sim`` (``=1`` forces it; ``lime_tpu``
     asks a link probe, which any link of 5 MB/s or more passes).
     """
@@ -885,12 +901,15 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
 
     keep = []  # pinned staging buffers + their copies' events
     plans = []  # per collection: (buffers, chunks, windows, row_bits)
-    dense_dev = []  # per collection: (device chunk, its read lanes)
+    # per collection: (device chunk, its read lanes, its sorted read rows)
+    dense_dev = []
     host_planes = {}  # collection -> its host-scored plane
     corr = []
     chunk_counts = [0, 0, 0]
     dense_bytes = 0
     tally = [0, 0]  # dense read lanes carrying a read, all lanes
+    status = dense_kernels.new_status(device)  # dense cells, faults
+    launched = dense_kernels.LAUNCHES["dense"]
     stats = {"dense_chunks": 0, "chain_bytes": 0}
 
     for fi, (lcp, da, ebwt) in _collections(collections, config, timer):
@@ -936,7 +955,7 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
             stats["dense_chunks"] += len(d_chunks)
             with timer.phase("dispatch", args=fi):
                 dense_dev[fi] = [(tuple(to_device(a, device, keep)
-                                        for a in c), lanes)
+                                        for a in c), lanes, np.unique(c[3]))
                                  for c, lanes in zip(
                                      d_chunks,
                                      _read_lanes(d_chunks, num_reads))]
@@ -1001,10 +1020,10 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
                                                  base)
                     sync()
                 with timer.phase("block_dense"):
-                    for chunk, lanes in dense_dev[fi]:
+                    for chunk, lanes, rows in dense_dev[fi]:
                         if _dense_chunk_offset(stack, fi, *chunk, base,
                                                B_BLK, C_BLK, PR, f_feat,
-                                               g_pad):
+                                               g_pad, rows, status):
                             _tally(tally, lanes)
                     sync()
                 hi_r = min(base + B, num_reads)
@@ -1082,7 +1101,8 @@ def _run_fused_blocked(collections, num_reads: int, num_genomes: int,
     keep.clear()
     mem = device_memory_stats(device)
     del buf, stack
-    _count_dense(timer, tally, g_pad, cascade_block_for(block, g_pad))
+    _count_dense(timer, tally, status, launched,
+                 cascade_block_for(block, g_pad))
     LAST_RUN.clear()
     LAST_RUN.update({"engine": "blocked", "planner": _planner(),
                      "host_num": host_num, "B": B,

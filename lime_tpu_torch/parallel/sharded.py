@@ -22,7 +22,7 @@ each.  Two engines:
   all-gathers its neighbours' stream edges as its left and right halos
   (the reference's boundary-straddle protocol, src/ClusterLCP.cpp:
   196-264), runs K3 once per collection on the halo-extended shard with
-  only its own positions emitting, adds its genome-dense matmul chunks,
+  only its own positions emitting, adds its genome-dense chunks,
   reduce-scatters the (F, R_pad, G_pad) partial over dp (each dp rank
   keeps its read-row block), all-reduces over sp, and classifies its
   rows;
@@ -36,7 +36,7 @@ int8 partial sums wrap mod 256 through every reduction: the reference's
 uchar counters (src/ClusterBWT_DA.cpp:183).  With more than one rank
 each rank plans only its own position range (``multihost``); with one
 (or no process group) the whole-file drivers run on a 1x1 mesh, with the
-banded engine's density routing (dense matmul chunks, the dense host
+banded engine's density routing (dense chunks, the dense host
 matrix).  Every rank issues the same collectives in the same order:
 sizes are all-gathered before any padded gather, and no branch before a
 collective depends on rank-local data.  Outputs are all-gathered; rank 0
@@ -66,6 +66,7 @@ from ..ops.banded_kernels import scatter_sim as _scatter_into
 from ..ops.classify_ops import ClassifyResult
 from ..ops.classify_torch import (_pack_triplet, _unpack_triplet,
                                   blockwise_cascade)
+from ..ops import dense_kernels
 from ..ops.dense_score import _dense_chunk
 from ..ops.fused_pipeline import _plan_python, _planner
 from ..ops.pair_kernels import BUCKET_CAPS
@@ -250,7 +251,7 @@ def make_sharded_pipeline(mesh: Mesh, num_files: int, num_reads: int,
     - ``tax``, ``rank_matrix``, ``valid_t``, ``error``: the cascade's
       inputs (G_pad lanes);
     - ``hostm``: the density-routed host matrix (F, R, G), or None;
-    - ``dense``: this rank's genome-dense matmul chunks, ``(file, ridx,
+    - ``dense``: this rank's genome-dense chunks, ``(file, ridx,
       gidx, cmap, rid)`` each (``host.pack_chunks``), or None.
 
     Returns (types, taxid, sim) of this rank's ``rows_local`` read rows
@@ -296,14 +297,16 @@ def make_sharded_pipeline(mesh: Mesh, num_files: int, num_reads: int,
                     (code >> _M_BIT) & 1, emit_ok, code & 15).contiguous(),
                     da_e[f].contiguous(), int(window), num_reads)
             del pk_e, da_e
-            # genome-dense clusters: histogram-matmul chunks; every pair
-            # is emitted by exactly one rank, so the reductions below
-            # merge them like the banded partials
+            # genome-dense clusters: the dense chunks; every pair is
+            # emitted by exactly one rank, so the reductions below merge
+            # them like the banded partials
+            status = dense_kernels.new_status(dev)
             for fi, *chunk in dense or ():
                 _dense_chunk(partial[fi], *(to_device(a, dev, keep)
                                             for a in chunk),
-                             B_BLK, C_BLK, PR, dense_f, g_pad)
+                             B_BLK, C_BLK, PR, dense_f, g_pad, status)
             _sync(dev)
+            dense_kernels.take(status)  # raises on a fault in a chunk
         with timer.phase("collective"):
             # row-shard over dp, then merge position shards over sp
             sims = mesh.reduce_scatter_dp(partial)
@@ -411,7 +414,7 @@ def run_sharded(collections, output_path: str, num_reads: int,
     With more than one rank every rank plans only its own position range
     (:func:`_run_sharded_multiprocess`).  On one rank (or with no process
     group) the whole-file driver plans every collection with the density
-    routing: genome-dense clusters to the matmul chunks, IUPAC-degenerate
+    routing: genome-dense clusters to the dense chunks, IUPAC-degenerate
     and over-long ones to the host rescue (COO corrections, or a dense
     host matrix when they are many) — the reference's full input domain.
 

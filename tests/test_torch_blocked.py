@@ -23,6 +23,7 @@ from lime_tpu.parallel.sharded import pair_rows_local
 from lime_tpu.pipeline import run_paired as jax_run_paired
 from lime_tpu.pipeline import run_single as jax_run_single
 from lime_tpu_torch import LimeConfig, host, run_paired, run_single
+from lime_tpu_torch.ops import dense_kernels
 from lime_tpu_torch.ops import fused_pipeline as tfp
 from lime_tpu_torch.ops import pair_score as tps
 from lime_tpu_torch.ops.dense_score import _dense_chunk_offset
@@ -282,6 +283,7 @@ def test_dense_offset_chunk_matches_jax(conserved, wide):
     jdt, tdt = (jnp.int32, torch.int32) if wide else (jnp.int8, torch.int8)
     want = jnp.zeros((2, B, g_pad), jdt)
     got = torch.zeros((2, B, g_pad), dtype=tdt)
+    status = dense_kernels.new_status("cpu")
     for ridx, gidx, cmap, rid in chunks:
         want = jds._dense_chunk_offset(
             want, jnp.asarray(ridx), jnp.asarray(gidx), jnp.asarray(cmap),
@@ -289,7 +291,8 @@ def test_dense_offset_chunk_matches_jax(conserved, wide):
             host.PR, f, g_pad, 0)
         _dense_chunk_offset(got, 0, *(torch.from_numpy(a) for a in
                                       (ridx, gidx, cmap, rid)),
-                            base, host.B_BLK, host.C_BLK, host.PR, f, g_pad)
+                            base, host.B_BLK, host.C_BLK, host.PR, f, g_pad,
+                            np.unique(rid), status)
     real = np.concatenate([c[3] for c in chunks])
     real = real[real < ds.num_reads]
     assert (real < base).any() and (real >= base + B).any()

@@ -21,6 +21,7 @@ from lime_tpu_torch import (LimeConfig, host, native, pipeline, reference,
 from lime_tpu_torch.constants import NUM_RANKS, SYMBOL_RANK_LUT
 from lime_tpu_torch.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch.ops import banded_kernels as bk
+from lime_tpu_torch.ops import dense_kernels
 from lime_tpu_torch.ops import classify_torch as ct
 from lime_tpu_torch.ops import fused_pipeline
 from lime_tpu_torch.ops import pair_kernels as pk
@@ -33,6 +34,7 @@ from lime_tpu_torch.utils.memory import MemoryProfiler, memory_report
 from lime_tpu_torch.utils.timing import (pair_kernel_launches, read_trace,
                                          trace_summary)
 
+from . import test_torch_dense_kernel as tdk
 from .synth import make_dataset
 from .test_torch_selfcontained import ensure_reference_native
 
@@ -213,16 +215,20 @@ def test_dense_chunk_cuda_matches_cpu(cuda, conserved):
     chunks = host.pack_chunks(out[4], out[5], da, ebwt, ds.num_reads,
                               ds.num_genomes, g_pad)[0]
     assert chunks
-    planes = []
+    planes, cells = [], []
     for dev in (CPU, cuda):
         sim = torch.zeros((host._r_pad_for(ds.num_reads), g_pad),
                           dtype=torch.int8, device=dev)
+        status = dense_kernels.new_status(dev)
         for arrs in chunks:
             _dense_chunk(sim, *(torch.from_numpy(a).to(dev) for a in arrs),
-                         host.B_BLK, host.C_BLK, host.PR, 4 * host.K, g_pad)
+                         host.B_BLK, host.C_BLK, host.PR, 4 * host.K, g_pad,
+                         status)
+        cells.append(dense_kernels.take(status))
         planes.append(sim.cpu().numpy()[:ds.num_reads])
     assert np.any(planes[0])
     assert np.array_equal(planes[1], planes[0])
+    assert cells[1] == cells[0] > 0
 
 
 def _launch_total():
@@ -270,11 +276,14 @@ def test_dense_offset_chunk_cuda_matches_cpu(cuda, conserved, wide):
     for dev in (CPU, cuda):
         stack = torch.zeros((2, B, g_pad), dtype=torch.int32 if wide
                             else torch.int8, device=dev)
+        status = dense_kernels.new_status(dev)
         for arrs in chunks:
             _dense_chunk_offset(stack, 0, *(torch.from_numpy(a).to(dev)
                                             for a in arrs),
                                 base, host.B_BLK, host.C_BLK, host.PR,
-                                4 * host.K, g_pad)
+                                4 * host.K, g_pad, np.unique(arrs[3]),
+                                status)
+        dense_kernels.take(status)
         stacks.append(stack.cpu().numpy())
     assert stacks[0][0].any() and not stacks[0][1].any()
     assert np.array_equal(stacks[1], stacks[0])
@@ -307,11 +316,14 @@ def test_offset_scatters_past_2_31_cells_cuda(cuda, deep, conserved, path):
                 stack, 0, tps.pair_upload(out[0], out[1], dev, keep),
                 out[1], out[2], out[3], base)
         else:
+            status = dense_kernels.new_status(dev)
             for arrs in chunks:
                 _dense_chunk_offset(stack, 0, *(torch.from_numpy(a).to(dev)
                                                 for a in arrs),
                                     base, host.B_BLK, host.C_BLK, host.PR,
-                                    4 * host.K, g_pad)
+                                    4 * host.K, g_pad, np.unique(arrs[3]),
+                                    status)
+            dense_kernels.take(status)
 
     stack = torch.zeros((1, big, g_pad), dtype=torch.int8, device=cuda)
     score(stack, r_pad)
@@ -325,6 +337,245 @@ def test_offset_scatters_past_2_31_cells_cuda(cuda, deep, conserved, path):
     assert not stack[:, r_pad:].any()
     del stack
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The dense kernel (csrc/dense_pairs.cu) against the plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=tdk.WIDTHS,
+                ids=[f"g{g}" for g in tdk.WIDTHS])
+def dense_width(cuda, request, tmp_path_factory):
+    """Genome-dense clusters at G_pad 1,024, 3,456 and 4,224."""
+    return tdk.width_dataset(str(tmp_path_factory.mktemp(
+        f"dense_w{request.param}")), request.param)
+
+
+def _kernel_plane(chunks, dev, shape, dtype, f, g_pad, status, row_base=None,
+                  init=None):
+    """Every chunk into a fresh plane (or row block) on ``dev``."""
+    plane = (torch.zeros(shape, dtype=dtype) if init is None
+             else init.clone()).to(dev)
+    for chunk in chunks:
+        arrs = [torch.from_numpy(a).to(dev) for a in chunk]
+        if row_base is None:
+            _dense_chunk(plane, *arrs, *tdk.SHAPE, f, g_pad, status)
+        else:
+            _dense_chunk_offset(plane[None], 0, *arrs, row_base, *tdk.SHAPE,
+                                f, g_pad, np.unique(chunk[3]), status)
+    return plane.cpu()
+
+
+def _plain_plane(chunks, shape, dtype, f, g_pad, status, row_base=None):
+    """The plain version over the same chunks, each cut to the entries
+    and clusters it uses (the same scores, smaller feature tensors)."""
+    want = torch.zeros(shape, dtype=dtype)
+    for chunk in chunks:
+        small, b, c = tdk.shrink(chunk, *tdk.SHAPE, f, g_pad)
+        want = tdk.plain_plane([small], shape[0], g_pad, dtype, b, c,
+                               host.PR, f, status, row_base=row_base,
+                               init=want)
+    return want
+
+
+def _statuses(cuda):
+    return dense_kernels.new_status(cuda), dense_kernels.new_status(CPU)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32],
+                         ids=["int8", "int32"])
+@pytest.mark.parametrize("use_ebwt", [True, False], ids=["ebwt", "no_ebwt"])
+def test_dense_kernel_matches_plain_at_width(cuda, dense_width, use_ebwt,
+                                             dtype):
+    """Every dense chunk of a collection at the three widths (F 32 and
+    8), int8 and int32: the kernel's plane is the plain version's, one
+    launch a chunk, and its cell count is the plain version's."""
+    ds = dense_width
+    chunks, g_pad, f = tdk.dense_chunks(ds, use_ebwt)
+    assert chunks
+    shape = (ds.num_reads + 1, g_pad)
+    st, st_cpu = _statuses(cuda)
+    before = dense_kernels.LAUNCHES["dense"]
+    got = _kernel_plane(chunks, cuda, shape, dtype, f, g_pad, st)
+    assert dense_kernels.LAUNCHES["dense"] == before + len(chunks)
+    want = _plain_plane(chunks, shape, dtype, f, g_pad, st_cpu)
+    assert dense_kernels.take(st) == dense_kernels.take(st_cpu) > 0
+    assert torch.any(want[:ds.num_reads] != 0)
+    assert torch.equal(got, want)
+
+
+def test_dense_kernel_row_block_at_width(cuda, dense_width):
+    """A row block of reads 100-259 of 400, lanes on both sides of both
+    edges: the kernel drops the lanes outside it as the plain version
+    does."""
+    ds = dense_width
+    chunks, g_pad, f = tdk.dense_chunks(ds)
+    base, shape = 100, (160, g_pad)
+    for chunk in chunks:
+        assert np.any(chunk[3] < base)
+        assert np.any((chunk[3] >= base + shape[0])
+                      & (chunk[3] < ds.num_reads))
+    st, st_cpu = _statuses(cuda)
+    got = _kernel_plane(chunks, cuda, shape, torch.int8, f, g_pad, st, base)
+    want = _plain_plane(chunks, shape, torch.int8, f, g_pad, st_cpu, base)
+    assert dense_kernels.take(st) == dense_kernels.take(st_cpu) > 0
+    assert torch.any(want != 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f", [32, 8])
+def test_dense_kernel_wraps_int8(cuda, f):
+    """One cell hit by enough clusters that its sum passes 255: the int8
+    byte wraps mod 256 with no carry into its neighbours, int32 keeps
+    the sum."""
+    g_pad, rows = 128, 8
+    chunk, b, c = tdk.wrapping_chunk(f, g_pad, rows)
+    for dtype in (torch.int8, torch.int32):
+        st, st_cpu = _statuses(cuda)
+        got = torch.zeros((rows, g_pad), dtype=dtype, device=cuda)
+        _dense_chunk(got, *(torch.from_numpy(a).to(cuda) for a in chunk),
+                     b, c, host.PR, f, g_pad, st)
+        want = tdk.plain_plane([chunk], rows, g_pad, dtype, b, c, host.PR, f,
+                               status=st_cpu)
+        assert dense_kernels.take(st) == dense_kernels.take(st_cpu) == b
+        assert torch.equal(got.cpu(), want)
+        assert int(want[3, 5]) == (b * f if dtype == torch.int32
+                                   else (b * f) % 256)
+        assert int(torch.count_nonzero(want)) == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dense_kernel_synthetic_matches_plain(cuda, seed):
+    """Planner-shaped synthetic chunks with up to 90 genomes a cluster
+    and dense feature sets (genome runs across the kernel's 32-triple
+    windows), F 32 and 8, int8 and int32, into a plane whose drop row
+    starts non-zero: equal to the plain version, drop row untouched."""
+    rng = np.random.default_rng(seed)
+    b_blk, c_blk, pr, g_pad, rows = 256, 96, host.PR, 1024, 300
+    for f in (32, 8):
+        chunk = tdk.synthetic_chunk(rng, b_blk, c_blk, pr, f, g_pad, 930,
+                                    rows, density=0.9 if seed else 0.3)
+        for dtype in (torch.int8, torch.int32):
+            st, st_cpu = _statuses(cuda)
+            init = torch.zeros((rows, g_pad), dtype=dtype)
+            init[rows - 1] = torch.arange(1, g_pad + 1).to(dtype)
+            got = init.clone().to(cuda)
+            _dense_chunk(got, *(torch.from_numpy(a).to(cuda)
+                                for a in chunk), b_blk, c_blk, pr, f, g_pad,
+                         st)
+            want = tdk.plain_plane([chunk], rows, g_pad, dtype, b_blk,
+                                   c_blk, pr, f, init=init, status=st_cpu)
+            assert dense_kernels.take(st) == dense_kernels.take(st_cpu) > 0
+            assert torch.equal(got.cpu(), want)
+            assert torch.equal(want[rows - 1], init[rows - 1])
+
+
+def test_dense_kernel_full_plane_past_2_31_cells(cuda, conserved):
+    """A whole plane of over 2^31 cells whose chunk rows sit past its
+    2^31st cell: 64-bit addressing, and nothing below them written."""
+    ds = conserved
+    chunks, g_pad, f = tdk.dense_chunks(ds)
+    r_pad = host._r_pad_for(ds.num_reads)
+    shift = -(-((1 << 31) + 1) // g_pad)
+    big = torch.zeros((shift + r_pad, g_pad), dtype=torch.int8, device=cuda)
+    st, st_cpu = _statuses(cuda)
+    for chunk in chunks:
+        _dense_chunk(big, *(torch.from_numpy(a).to(cuda) for a in
+                            (*chunk[:3], chunk[3] + shift)),
+                     *tdk.SHAPE, f, g_pad, st)
+    want = _plain_plane(chunks, (r_pad, g_pad), torch.int8, f, g_pad, st_cpu)
+    assert dense_kernels.take(st) == dense_kernels.take(st_cpu) > 0
+    assert torch.any(want != 0)
+    assert torch.equal(big[shift:].cpu(), want)
+    assert not big[:shift].any()
+    del big
+    torch.cuda.empty_cache()
+
+
+def test_dense_kernel_counts_one_launch_per_replay(cuda, conserved):
+    """Row-block replays over 3,000 reads in blocks of 1,024: one launch
+    for each (chunk, block) the chunk's rows reach, none for the
+    others."""
+    ds = conserved
+    chunks, g_pad, f = tdk.dense_chunks(ds)
+    B = 1024
+    stack = torch.zeros((1, B, g_pad), dtype=torch.int8, device=cuda)
+    st = dense_kernels.new_status(cuda)
+    want = 0
+    before = dense_kernels.LAUNCHES["dense"]
+    for base in range(0, ds.num_reads + 1, B):
+        for chunk in chunks:
+            rows = np.unique(chunk[3])
+            reach = bool(np.any((rows >= base) & (rows < base + B)))
+            want += reach
+            assert _dense_chunk_offset(
+                stack, 0, *(torch.from_numpy(a).to(cuda) for a in chunk),
+                base, *tdk.SHAPE, f, g_pad, rows, st) == reach
+    assert dense_kernels.LAUNCHES["dense"] == before + want > len(chunks)
+    assert dense_kernels.take(st) > 0
+
+
+@pytest.mark.parametrize("fault", ["read_past", "read_order", "genome_past",
+                                   "genome_order", "cluster", "row"])
+def test_dense_kernel_fault_raises(cuda, fault):
+    """Each index the torch version would refuse, and triples out of the
+    order the kernel searches, raise at the next ``take``, every time;
+    nothing is written outside the plane."""
+    g_pad, rows, f = 128, 8, 32
+    chunk, b, c = tdk.wrapping_chunk(f, g_pad, rows)
+    ridx, gidx, cmap, rid = (a.copy() for a in chunk)
+    if fault == "read_past":
+        ridx[-1] = b * host.PR * f + 1
+    elif fault == "read_order":
+        ridx[[0, 1]] = ridx[[1, 0]]
+    elif fault == "genome_past":
+        gidx[-1] = c * g_pad * f + 1
+    elif fault == "genome_order":
+        gidx[[0, -1]] = gidx[[-1, 0]]
+    elif fault == "cluster":
+        cmap[0] = c
+    else:
+        rid[0] = rows
+    buf = torch.zeros((rows + 2, g_pad), dtype=torch.int8, device=cuda)
+    arrs = [torch.from_numpy(a).to(cuda) for a in (ridx, gidx, cmap, rid)]
+    st = dense_kernels.new_status(cuda)
+    _dense_chunk(buf[1:rows + 1], *arrs, b, c, host.PR, f, g_pad, st)
+    with pytest.raises(RuntimeError, match="dense_pairs"):
+        dense_kernels.take(st)
+    assert dense_kernels.take(st) == 0  # the fault was reset
+    _dense_chunk(buf[1:rows + 1], *arrs, b, c, host.PR, f, g_pad, st)
+    with pytest.raises(RuntimeError, match="dense_pairs"):
+        dense_kernels.take(st)
+    assert not buf[0].any() and not buf[rows + 1].any()
+
+
+def test_fused_run_dense_counters_cuda_match_cpu(cuda, dense_width,
+                                                 tmp_path):
+    """The fused path end to end at each width: the card's CSV is the
+    CPU's and the jax-free host reference's, its dense chunks all went
+    through the kernel, one launch each (``dense_launches``), and
+    ``dense_cells`` is the plain version's count."""
+    ds = dense_width
+    runs = {}
+    for dev in (CPU, cuda):
+        out = str(tmp_path / f"{dev.type}.csv")
+        before = dense_kernels.LAUNCHES["dense"]
+        run_paired(ds.collections, out, ds.num_reads, ds.num_genomes,
+                   ds.lineage_path, ds.read_len, FUSED, device=dev)
+        runs[dev.type] = (_read(out), dict(fused_pipeline.LAST_RUN),
+                          dense_kernels.LAUNCHES["dense"] - before)
+    (csv_c, run_c, n_c), (csv_g, run_g, n_g) = runs["cpu"], runs["cuda"]
+    ref = str(tmp_path / "reference.csv")
+    reference.reference_csv(ds.collections, ref, ds.num_reads,
+                            ds.num_genomes, ds.lineage_path, ds.read_len,
+                            FUSED)
+    assert csv_g == csv_c == _read(ref)
+    assert n_c == run_c["counts"]["dense_launches"] == 0
+    assert n_g == run_g["counts"]["dense_launches"] == run_g[
+        "dense_chunks"] > 0
+    for key in ("dense_cells", "dense_lanes", "dense_lanes_total"):
+        assert run_g["counts"][key] == run_c["counts"][key], key
+    assert run_g["counts"]["dense_cells"] >= run_g["counts"]["dense_lanes"]
 
 
 @pytest.fixture(scope="module")

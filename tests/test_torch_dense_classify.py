@@ -14,6 +14,7 @@ from lime_tpu.ops import dense_score as jds
 from lime_tpu.ops import fused_pipeline as jfp
 from lime_tpu_torch import host
 from lime_tpu_torch.ops import classify_torch as ct
+from lime_tpu_torch.ops import dense_kernels
 from lime_tpu_torch.ops.dense_score import _dense_chunk
 
 from .synth_big import make_big_dataset
@@ -55,13 +56,14 @@ def test_dense_chunk_matches_jax(conserved, use_ebwt):
     f = (4 if use_ebwt else 1) * host.K
     want = jnp.zeros((r_pad, g_pad), jnp.int8)
     got = torch.zeros((r_pad, g_pad), dtype=torch.int8)
+    status = dense_kernels.new_status("cpu")
     for ridx, gidx, cmap, rid in chunks:
         want = jds._dense_chunk(want, jnp.asarray(ridx), jnp.asarray(gidx),
                                 jnp.asarray(cmap), jnp.asarray(rid),
                                 host.B_BLK, host.C_BLK, host.PR, f, g_pad)
         _dense_chunk(got, *(torch.from_numpy(a)
                             for a in (ridx, gidx, cmap, rid)),
-                     host.B_BLK, host.C_BLK, host.PR, f, g_pad)
+                     host.B_BLK, host.C_BLK, host.PR, f, g_pad, status)
     want = np.asarray(want)
     assert np.any(want[:ds.num_reads])
     assert np.array_equal(got.numpy()[:ds.num_reads],
@@ -78,7 +80,8 @@ def test_dense_chunk_real_index_out_of_range_raises():
     rid = torch.zeros(b_blk * pr, dtype=torch.int32)
     sim = torch.zeros((8, g_pad), dtype=torch.int8)
     with pytest.raises((IndexError, RuntimeError)):
-        _dense_chunk(sim, ridx, gidx, cmap, rid, b_blk, c_blk, pr, f, g_pad)
+        _dense_chunk(sim, ridx, gidx, cmap, rid, b_blk, c_blk, pr, f, g_pad,
+                     dense_kernels.new_status("cpu"))
 
 
 def _random_planes(rng, F, r_pad, g_pad, num_genomes, wide):

@@ -24,12 +24,15 @@ import torch
 from benchmark.data.dataset import make_dataset
 from benchmark.reference import plain
 from lime_tpu.pipeline import run_paired as jax_run_paired
-from lime_tpu_torch import LimeConfig, host, run_paired
+from lime_tpu_torch import LimeConfig, host, native, run_paired
+from lime_tpu_torch.formats.arrays import open_da, open_ebwt, open_lcp
 from lime_tpu_torch.ops import classify_torch as tct
+from lime_tpu_torch.ops import dense_kernels
 from lime_tpu_torch.ops import dense_score as tds
 from lime_tpu_torch.ops import fused_pipeline as tfp
 from lime_tpu_torch.ops.classify_torch import cascade_block_for
 
+from .test_torch_dense_kernel import popcount_model
 from .test_torch_selfcontained import ensure_reference_native, jax_config
 
 # build and load lime_tpu's native library before any test, whatever
@@ -91,6 +94,56 @@ def wide(tmp_path_factory):
     return ds, want
 
 
+@pytest.fixture(scope="module")
+def wide_cells(wide):
+    """``cells(host_num=0)``: the cells the dense kernel scores in a run
+    (the plain version counts the same), lanes that carry a read times
+    their cluster's genomes, from the numpy model of the kernel over
+    every dense chunk of the four collections as the fused path plans
+    them with ``host_num`` 256ths of the clusters on the host.  At 256
+    that is the job shop's plan: the light scan, its pair-heavy clusters
+    offloaded (under the run's ``LIME_DENSE_OFFLOAD_MIN``).  A row-blocked
+    run plans as the one-block run of its host share, and each lane lies
+    in one row block."""
+    ds = wide[0]
+    g_pad = host._g_pad_for(ds.num_genomes)
+    f = 4 * host.K
+    memo = {}
+
+    def plan(col, da, ebwt, host_num):
+        if host_num < 256:
+            return tfp._plan_pairs(open_lcp(col), da, ebwt, ds.num_reads,
+                                   ds.num_genomes, FUSED, host_num)[4:6]
+        starts, lens, nrr = native.plan_clusters(
+            open_lcp(col), da, ds.num_reads, FUSED.alpha, threads=1,
+            return_nr=True)
+        big = tfp._dense_offload(starts, lens, nrr)
+        return starts[big], lens[big]
+
+    def cells(host_num=0):
+        if host_num in memo:
+            return memo[host_num]
+        n = 0
+        for col in ds.collections:
+            da, ebwt = open_da(col), open_ebwt(col)
+            den_s, den_l = plan(col, da, ebwt, host_num)
+            for chunk in host.pack_chunks(den_s, den_l, da, ebwt,
+                                          ds.num_reads, ds.num_genomes,
+                                          g_pad)[0]:
+                plane = np.zeros((ds.num_reads + 1, g_pad), np.int32)
+                n += popcount_model(plane, chunk, host.B_BLK, host.C_BLK,
+                                    host.PR, f, g_pad)
+        assert n > 0
+        memo[host_num] = n
+        return n
+
+    return cells
+
+
+def _status():
+    return dense_kernels.new_status("cpu")
+
+
 def _tiles(g_pad):
     """``(c0, w)`` of each genome-column tile of the dense products."""
     tile = tds.dense_tile_for(g_pad)
@@ -103,7 +156,7 @@ def _run(ds, out, cfg=FUSED):
     return dict(tfp.LAST_RUN)
 
 
-def test_wide_fused_matches_plain_reference(wide, tmp_path):
+def test_wide_fused_matches_plain_reference(wide, wide_cells, tmp_path):
     ds, want = wide
     g_pad = host._g_pad_for(ds.num_genomes)
     assert g_pad == 4224
@@ -114,10 +167,10 @@ def test_wide_fused_matches_plain_reference(wide, tmp_path):
     counts = run["counts"]
     lanes = run["dense_chunks"] * host.B_BLK * host.PR
     assert counts["dense_lanes_total"] == lanes
-    # two tiles of 2,176 columns, the second's last 128 empty
+    # the plain version's two tiles of 2,176 columns, the second's last
+    # 128 empty; the cells are the kernel's, whatever the tiles
     assert [w for _, w in _tiles(g_pad)] == [2176, 2048]
-    assert tds.dense_columns(g_pad) == 4352
-    assert counts["dense_cells"] == lanes * 4352
+    assert counts["dense_cells"] == wide_cells()
     assert 0 < counts["dense_lanes"] < lanes
     # 301 rows: one 512-read block, within the 3,456-column tile bound
     assert counts["cascade_block"] == 512
@@ -131,8 +184,8 @@ def test_wide_fused_matches_plain_reference(wide, tmp_path):
     (0.0, "1"),    # row-blocked: dense chunks replayed per row block
     (0.5, "1"),    # row-blocked hybrid
 ], ids=["device", "hybrid", "all-host", "blocked", "blocked-hybrid"])
-def test_wide_matches_jax_and_host(wide, tmp_path, monkeypatch, frac,
-                                   budget):
+def test_wide_matches_jax_and_host(wide, wide_cells, tmp_path, monkeypatch,
+                                   frac, budget):
     """Every engine of the fused path at G_pad 4,224 writes the bytes of
     lime_tpu's host executor and fused run (the fixture holds those to
     the plain reference's)."""
@@ -153,14 +206,17 @@ def test_wide_matches_jax_and_host(wide, tmp_path, monkeypatch, frac,
                              "all_host" if frac == 1.0 else "pair")
     assert run["dense_chunks"] > 0
     counts = run["counts"]
-    assert counts["dense_cells"] == (counts["dense_lanes_total"]
-                                     * tds.dense_columns(4224)) > 0
+    assert counts["dense_cells"] == wide_cells(run["host_num"])
+    # each lane that carries a read meets one to all genomes
+    assert (0 < counts["dense_lanes"] <= counts["dense_cells"]
+            <= counts["dense_lanes"] * ds.num_genomes)
 
 
 @pytest.mark.parametrize("blocked", [False, True],
                          ids=["one-block", "row-blocked"])
-def test_wide_forced_small_tiles_are_byte_identical(wide, tmp_path,
-                                                    monkeypatch, blocked):
+def test_wide_forced_small_tiles_are_byte_identical(wide, wide_cells,
+                                                    tmp_path, monkeypatch,
+                                                    blocked):
     """Cascade blocks of 128 reads (4 a 512-row block) and dense tiles of
     640 columns (6, then one of 384): the same CSV bytes."""
     ds, want = wide
@@ -179,7 +235,7 @@ def test_wide_forced_small_tiles_are_byte_identical(wide, tmp_path,
     assert counts["cascade_block"] == 128
     lanes = run["dense_chunks"] * host.B_BLK * host.PR
     assert counts["dense_lanes_total"] == lanes
-    assert counts["dense_cells"] == lanes * 640 * 7
+    assert counts["dense_cells"] == wide_cells()
 
 
 @pytest.mark.parametrize("g_pad", [128, 1024, 2048, 3456])
@@ -229,18 +285,19 @@ def test_dense_tiles_equal_whole_product(monkeypatch, tile, dtype):
     rng = np.random.default_rng(tile)
     chunk = _random_chunk(rng, b_blk, c_blk, pr, f, g_pad, 3000, 40000,
                           rows)
+    rows_sorted, status = np.unique(chunk[3].numpy()), _status()
     want = torch.zeros((rows, g_pad), dtype=dtype)
-    tds._dense_chunk(want, *chunk, b_blk, c_blk, pr, f, g_pad)
+    tds._dense_chunk(want, *chunk, b_blk, c_blk, pr, f, g_pad, status)
     want_blk = torch.zeros((2, 16, g_pad), dtype=dtype)
     tds._dense_chunk_offset(want_blk, 1, *chunk, 8, b_blk, c_blk, pr, f,
-                            g_pad)
+                            g_pad, rows_sorted, status)
     assert torch.any(want != 0) and torch.any(want_blk[1] != 0)
     monkeypatch.setattr(tds, "dense_tile_for", lambda g: tile)
     got = torch.zeros((rows, g_pad), dtype=dtype)
-    tds._dense_chunk(got, *chunk, b_blk, c_blk, pr, f, g_pad)
+    tds._dense_chunk(got, *chunk, b_blk, c_blk, pr, f, g_pad, status)
     got_blk = torch.zeros((2, 16, g_pad), dtype=dtype)
     tds._dense_chunk_offset(got_blk, 1, *chunk, 8, b_blk, c_blk, pr, f,
-                            g_pad)
+                            g_pad, rows_sorted, status)
     assert torch.equal(got, want)
     assert torch.equal(got_blk, want_blk)
 
@@ -256,12 +313,12 @@ def test_tiled_real_index_out_of_range_raises(monkeypatch):
     sim = torch.zeros((8, g_pad), dtype=torch.int8)
     pad = c_blk * g_pad * f
     tds._dense_chunk(sim, ridx, torch.tensor([pad], dtype=torch.int32),
-                     cmap, rid, b_blk, c_blk, pr, f, g_pad)
+                     cmap, rid, b_blk, c_blk, pr, f, g_pad, _status())
     assert not torch.any(sim)
     with pytest.raises((IndexError, RuntimeError)):
         tds._dense_chunk(sim, ridx,
                          torch.tensor([pad + 1], dtype=torch.int32), cmap,
-                         rid, b_blk, c_blk, pr, f, g_pad)
+                         rid, b_blk, c_blk, pr, f, g_pad, _status())
 
 
 def test_offset_chunk_outside_the_block_computes_nothing(monkeypatch):
@@ -272,9 +329,11 @@ def test_offset_chunk_outside_the_block_computes_nothing(monkeypatch):
                           g_pad, 3000, 40000, rows)
     chunk[3] = torch.full_like(chunk[3], 5)  # every lane on read 5
     stack = torch.zeros((2, 16, g_pad), dtype=torch.int8)
+    rows_sorted, status = np.unique(chunk[3].numpy()), _status()
     assert tds._dense_chunk_offset(stack, 1, *chunk, 0, b_blk, c_blk, pr,
-                                   f, g_pad)
+                                   f, g_pad, rows_sorted, status)
     assert torch.any(stack[1, 5] != 0)
+    assert dense_kernels.take(status) > 0
 
     def no_product(*args):
         raise AssertionError("a product for a block without its rows")
@@ -282,5 +341,6 @@ def test_offset_chunk_outside_the_block_computes_nothing(monkeypatch):
     monkeypatch.setattr(tds, "_dense_rows", no_product)
     stack.zero_()
     assert not tds._dense_chunk_offset(stack, 1, *chunk, 16, b_blk, c_blk,
-                                       pr, f, g_pad)
+                                       pr, f, g_pad, rows_sorted, status)
     assert not torch.any(stack)
+    assert dense_kernels.take(status) == 0
