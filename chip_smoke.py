@@ -604,7 +604,7 @@ def run_stats(packed: np.ndarray, doc: np.ndarray, num_reads: int,
 
 def _banded_planner_codes(fasta: str, ds, cfg, dev):
     """One collection's compacted planner stream as ``[banded]`` hands it
-    to K3 (``fused_pipeline._score_program``): (codes, document ids) on
+    to K3 (``fused_pipeline._run_fused_inner``): (codes, document ids) on
     ``dev`` and its window, or None when nothing is banded."""
     packed, doc, nc, window = fused_pipeline.plan_banded(
         open_lcp(fasta), open_da(fasta), open_ebwt(fasta), ds.num_reads,

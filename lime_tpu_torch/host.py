@@ -21,7 +21,9 @@ the reference and stays unchanged, so the port keeps these copies and
 
 ``tests/test_torch_staged.py`` pins the last three rows,
 ``tests/test_torch_blocked.py`` pins ``pair_rows_local`` and
-``tests/test_torch_sharded.py`` pins ``_rescue``.  Where an
+``tests/test_torch_sharded.py`` pins ``_rescue``.  Two helpers are the
+port's own: ``_coo_rescue_for``, ``_rescue``'s test, which the fused
+one-block engine shares, and ``_pair_dense_min_for``.  Where an
 original branches on whether the native library loaded
 (``native.available()``), so does the copy: ``_score_small_dense`` takes
 the numpy exact scorer, ``_rescue`` the sparse branch and
@@ -295,6 +297,17 @@ def _rescue_sparse(bad_start, bad_len, da, ebwt, num_reads: int,
     return rows, cols, vals.astype(np.int32)
 
 
+def _coo_rescue_for(positions: int, num_reads: int, num_genomes: int) -> bool:
+    """Whether a rescue set of ``positions`` index positions takes sparse
+    COO rather than an (R, G) host matrix: at most ``_COO_POSITION_CAP``
+    positions and fewer than R·G/16, or no native library (whose scorer
+    fills the matrix).  :func:`_rescue`'s test, which the fused
+    one-block engine shares."""
+    return (positions <= _COO_POSITION_CAP
+            and positions < num_reads * num_genomes // 16
+            ) or not native.available()
+
+
 def _rescue(bad_start, bad_len, da, ebwt, num_reads: int, num_genomes: int,
             config: LimeConfig):
     """Host-side exact scoring of routed clusters.
@@ -305,8 +318,7 @@ def _rescue(bad_start, bad_len, da, ebwt, num_reads: int, num_genomes: int,
     sends a large share of clusters to the host scorer.
     """
     total = int(np.asarray(bad_len, np.int64).sum())
-    if (total <= _COO_POSITION_CAP and total < num_reads * num_genomes // 16
-            ) or not native.available():
+    if _coo_rescue_for(total, num_reads, num_genomes):
         return ("coo", *_rescue_sparse(bad_start, bad_len, da, ebwt,
                                        num_reads, num_genomes, config))
     mat = native.score_clusters_native(
@@ -354,6 +366,15 @@ def _dense_threshold_for(num_genomes: int, config: LimeConfig) -> int:
     if config.dense_threshold is not None:
         return config.dense_threshold
     return 0 if _g_pad_for(num_genomes) <= 256 else (1 << 62)
+
+
+def _pair_dense_min_for(config: LimeConfig) -> int:
+    """Genome-position threshold of the packed pair planner's dense
+    routing (``native.plan_pairs_packed``'s ``dense_min``) in the fused
+    and the SPMD pair engines: 16 at any width unless
+    ``config.mxu_dense_min`` sets it (the banded engine's
+    :func:`_dense_min_for` differs on purpose)."""
+    return 16 if config.mxu_dense_min is None else config.mxu_dense_min
 
 
 def _dense_min_for(num_genomes: int, config: LimeConfig) -> int:

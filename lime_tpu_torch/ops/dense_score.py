@@ -18,12 +18,12 @@ On a CPU plane the plain version runs ``lime_tpu``'s chain in torch
 (:func:`_dense_rows`): the device scatters the triples into the two
 feature tensors, runs one batched matmul and scatter-adds the rows into
 the plane.  The features are float32: inputs are 0/1 and every sum is at
-most F = 32, so the product is exact.  Past 3,456 genome columns the
-product runs in column tiles (:func:`dense_tile_for`), each built from
-the genome triples of its columns, so no feature tensor of the
-database's whole width exists.  Both versions count the cells the
-kernel scores (lanes that carry a read times their cluster's genomes)
-into a status of :func:`.dense_kernels.new_status`, which
+most F = 32, so the product is exact.  The product runs in column tiles
+of at most 3,456 columns (:func:`dense_tile_for`; one tile up to that
+width), each built from the genome triples of its columns, so no
+feature tensor of the database's whole width exists.  Both versions
+count the cells the kernel scores (lanes that carry a read times their
+cluster's genomes) into a status of :func:`.dense_kernels.new_status`, which
 :func:`.dense_kernels.take` reads; the kernel's faults go there too.
 
 In the row-blocked mode each chunk uploads once per run and is replayed
@@ -58,36 +58,25 @@ def _dense_rows(ridx: torch.Tensor, gidx: torch.Tensor, cmap: torch.Tensor,
                 b_blk: int, c_blk: int, pr: int, f: int, g_pad: int):
     """One fixed-shape chunk's scores: scatter features, batched matmul.
     Yields ``(c0, rows)`` for each genome-column tile of
-    :func:`dense_tile_for`'s width, in order: ``rows`` int32
-    ``(b_blk * pr, w)``, one row per read lane, holds columns
-    ``[c0, c0 + w)``.
+    :func:`dense_tile_for`'s width, in order (one tile up to 3,456
+    columns): ``rows`` int32 ``(b_blk * pr, w)``, one row per read lane,
+    holds columns ``[c0, c0 + w)``.
 
     Triple pads carry the index one past each feature buffer; the
     buffers get one extra sink slot there, sliced off before the matmul,
     so a real out-of-range index still raises.  Pad entries have all-zero
-    phi rows, so their rows are zero.  Past one tile, each tile's psi
-    takes the genome triples of its columns and sends the others to its
-    sink slot, chosen on the device with no wait; the sums are of 0/1
-    values, at most ``f``, so a tile's columns are exactly those of the
-    whole product.  Every tile's psi has the first tile's width, the
-    last one's extra columns are empty.
+    phi rows, so their rows are zero.  Each tile's psi takes the genome
+    triples of its columns and sends the others to its sink slot, chosen
+    on the device with no wait; the sums are of 0/1 values, at most
+    ``f``, so a tile's columns are exactly those of the whole product.
+    Every tile's psi has the first tile's width, the last one's extra
+    columns are empty.
     """
     dev = ridx.device
     phi = torch.zeros(b_blk * pr * f + 1, dtype=torch.float32, device=dev)
     phi.index_add_(0, ridx, torch.ones(ridx.shape[0], device=dev))
-    tile = dense_tile_for(g_pad)
-    if tile >= g_pad:
-        psi = torch.zeros(c_blk * g_pad * f + 1, dtype=torch.float32,
-                          device=dev)
-        psi.index_add_(0, gidx, torch.ones(gidx.shape[0], device=dev))
-        phi = phi[:-1].view(b_blk, pr, f)
-        psi = psi[:-1].view(c_blk, g_pad, f)
-        out = torch.bmm(phi, psi[cmap].transpose(1, 2))  # (b_blk, pr, g_pad)
-        rows = out.reshape(b_blk * pr, g_pad).to(torch.int32)
-        del phi, psi, out
-        yield 0, rows
-        return
     phi = phi[:-1].view(b_blk, pr, f)
+    tile = dense_tile_for(g_pad)
     sink = c_blk * tile * f
     g = gidx.to(torch.int64)
     doc = g // f  # cluster * g_pad + column

@@ -59,8 +59,8 @@ from ..formats.arrays import open_da, open_ebwt, open_lcp
 from ..formats.lineage import read_lineage
 from ..host import (_DEGENERATE_BYTE, _M_BIT, B_BLK, C_BLK, PR, K,
                     _dense_min_for, _dense_threshold_for, _g_pad_for,
-                    _rescue, _rescue_sparse, classify_block_size,
-                    pack_chunks, pair_rows_local)
+                    _pair_dense_min_for, _rescue, _rescue_sparse,
+                    classify_block_size, pack_chunks, pair_rows_local)
 from ..ops.banded_kernels import banded_sim_into, pack_positions
 from ..ops.banded_kernels import scatter_sim as _scatter_into
 from ..ops.classify_ops import ClassifyResult
@@ -68,7 +68,7 @@ from ..ops.classify_torch import (_pack_triplet, _unpack_triplet,
                                   blockwise_cascade)
 from ..ops import dense_kernels
 from ..ops.dense_score import _dense_chunk
-from ..ops.fused_pipeline import _plan_python, _planner
+from ..ops.fused_pipeline import _plan_pairs, _plan_python, _planner
 from ..ops.pair_kernels import BUCKET_CAPS
 from ..ops.pair_score import _pair_packed_block_offset, to_device
 from ..pipeline import CSV_HEADER, _write_csv_block
@@ -733,7 +733,6 @@ def run_sharded_pairs(collections, output_path: str, num_reads: int,
     g_pad = _g_pad_for(num_genomes)
     rows_local = _pair_rows_local(num_reads, dp, g_pad)
     W = native.row_bits_for(num_reads)
-    dense_min = 16 if config.mxu_dense_min is None else config.mxu_dense_min
 
     chunks, corr = [], []
     with timer.phase("plan"):
@@ -742,10 +741,8 @@ def run_sharded_pairs(collections, output_path: str, num_reads: int,
             da = open_da(fasta, mmap=True)
             ebwt = open_ebwt(fasta, mmap=True) if config.use_ebwt else None
             (arrays, plan, windows, w_f, den_s, den_l, bad_s,
-             bad_l) = native.plan_pairs_packed(
-                lcp, da, ebwt, num_reads, config.alpha, SYMBOL_RANK_LUT,
-                _DEGENERATE_BYTE.astype(np.uint8), dense_min=dense_min,
-                num_refs=num_genomes, dp=dp, rows_local=rows_local)
+             bad_l) = _plan_pairs(lcp, da, ebwt, num_reads, num_genomes,
+                                  config, dp=dp, rows_local=rows_local)
             chunks += [c for _, c in _plan_chunks(fi, arrays, plan, windows,
                                                   W)]
             if len(den_s):  # genome-dense clusters: exact host COO here
@@ -837,7 +834,6 @@ def _run_sharded_pairs_multiprocess(collections, output_path, num_reads,
     g_pad = _g_pad_for(num_genomes)
     rows_local = _pair_rows_local(num_reads, dp, g_pad)
     W = native.row_bits_for(num_reads)
-    dense_min = 16 if config.mxu_dense_min is None else config.mxu_dense_min
 
     own_chunks = [[] for _ in range(dp)]
     corr_local = []
@@ -846,7 +842,8 @@ def _run_sharded_pairs_multiprocess(collections, output_path, num_reads,
             (arrays, plan, windows, w_f, den_s, den_l, bad_s,
              bad_l) = plan_host_range_pairs(
                 fasta, num_reads, num_genomes, config.alpha, mesh.world,
-                mesh.rank, use_ebwt=config.use_ebwt, dense_min=dense_min,
+                mesh.rank, use_ebwt=config.use_ebwt,
+                dense_min=_pair_dense_min_for(config),
                 dp=dp, rows_local=rows_local)
             for owner, c in _plan_chunks(fi, arrays, plan, windows, W):
                 own_chunks[owner].append(c)

@@ -275,3 +275,127 @@ def test_host_rescue_matches(dataset, deep, name):
         assert _same(getattr(host, name)(*args, FUSED),
                      getattr(jfp, name)(*args, jax_config(FUSED)))
 
+
+
+def _tiny_rescue_set(n_clusters, short):
+    """A hand-made collection of 32 reads and 4 genomes (R·G/16 = 8
+    positions): ``n_clusters`` clusters of two reads and two genomes, the
+    last one ``short`` positions shorter.  ``(starts, lens, da, ebwt)``."""
+    R, docs = 32, []
+    for k in range(n_clusters):
+        docs += [2 * k % R, (2 * k + 1) % R, R + k % 4, R + (k + 1) % 4]
+    da = np.asarray(docs[:len(docs) - short], np.uint32)
+    ebwt = np.frombuffer(b"ACGT" * n_clusters, np.uint8)[:len(da)].copy()
+    lens = np.full(n_clusters, 4, np.int64)
+    lens[-1] -= short
+    starts = np.concatenate([[0], np.cumsum(lens[:-1])])
+    return starts, lens, da, ebwt
+
+
+@pytest.mark.parametrize("n_clusters,short,cap,no_native,kind", [
+    (2, 1, None, False, "coo"),    # 7 positions, one under R·G/16
+    (2, 0, None, False, "dense"),  # 8 positions, equal to R·G/16
+    (2, 1, 7, False, "coo"),       # positions equal to _COO_POSITION_CAP
+    (2, 1, 6, False, "dense"),     # one over it
+    (2, 0, None, True, "coo"),     # over R·G/16, but no native library
+])
+def test_rescue_rule_at_its_edges(monkeypatch, n_clusters, short, cap,
+                                  no_native, kind):
+    """The rescue's COO-versus-matrix rule, as ``host._rescue`` takes it,
+    at ``_COO_POSITION_CAP``, at R·G/16 positions and without the native
+    library, against ``lime_tpu``'s ``_rescue``."""
+    from lime_tpu_torch import native as tnative
+
+    starts, lens, da, ebwt = _tiny_rescue_set(n_clusters, short)
+    if cap is not None:
+        monkeypatch.setattr(host, "_COO_POSITION_CAP", cap)
+        monkeypatch.setattr(jfp, "_COO_POSITION_CAP", cap)
+    if no_native:
+        monkeypatch.setattr(tnative, "available", lambda: False)
+        monkeypatch.setattr(native, "available", lambda: False)
+    args = (starts, lens, da, ebwt, 32, 4)
+    got = host._rescue(*args, FUSED)
+    want = jfp._rescue(*args, jax_config(FUSED))
+    assert got[0] == want[0] == kind
+    assert _same(got, want)
+
+
+_ONE_BLOCK = {"banded_windows", "chain_bytes", "chunks_per_bucket", "counts",
+              "dense_chunks", "engine", "host_num", "host_plane_bytes",
+              "memory", "parents", "phases", "planner", "total"}
+_BLOCKED = _ONE_BLOCK | {"B", "blocks", "launches_per_bucket", "n_pass",
+                         "resident_bytes"}
+_COUNTS = {"cascade_block", "dense_cells", "dense_lanes",
+           "dense_lanes_total", "dense_launches"}
+_PLANNER = {"plan_scan": "plan", "plan_emit": "plan", "plan_merge": "plan"}
+_DENSE = {"dense_plan": "dense", "dense_pack": "dense"}
+_CLASSIFY = {"score": None, "score_sync": None, "classify_run": "classify",
+             "classify_fetch": "classify", "classify": None}
+_BLOCKS = {"block_pair": "block_score", "block_dense": "block_score",
+           "block_score": None, "block_classify": None, "block_fetch": None}
+_OFFLOAD = {"LIME_DENSE_OFFLOAD": "1", "LIME_DENSE_OFFLOAD_MIN": "16"}
+
+
+def _in(parent, *labels):
+    return {label: parent for label in labels}
+
+
+#: per case: config, environment, engine, LAST_RUN keys, each phase's
+#: parent, counts labels (the ``lineage`` and ``csv`` phases are
+#: ``run_paired``'s own)
+_RECORDS = {
+    "pair": ({}, {}, "pair", _ONE_BLOCK,
+             {**_PLANNER, **_DENSE, **_CLASSIFY,
+              **_in("score", "load", "plan", "dispatch", "dense")},
+             _COUNTS | {"plan_passes"}),
+    "hybrid": (dict(host_frac=0.5), {}, "pair", _ONE_BLOCK,
+               {**_PLANNER, **_DENSE, **_CLASSIFY,
+                **_in("score", "load", "plan", "dispatch", "dense",
+                      "host_score")},
+               _COUNTS | {"plan_passes"}),
+    "banded": (dict(pair_stream=False), {}, "banded", _ONE_BLOCK,
+               {**_DENSE, **_CLASSIFY,
+                **_in("score", "load", "plan", "dispatch", "dense")},
+               _COUNTS),
+    "all_host": (dict(host_frac=1.0), _OFFLOAD, "all_host", _ONE_BLOCK,
+                 {**_DENSE, **_CLASSIFY,
+                  **_in("score", "load", "plan", "dispatch", "dense",
+                        "host_score")},
+                 _COUNTS),
+    "blocked": ({}, {"LIME_HBM_BUDGET": "1"}, "blocked", _BLOCKED,
+                {**_PLANNER, **_DENSE, **_BLOCKS,
+                 **_in(None, "load", "plan", "dispatch", "dense")},
+                _COUNTS | {"plan_passes"}),
+    "blocked_hybrid": (dict(host_frac=0.5), {"LIME_HBM_BUDGET": "1"},
+                       "blocked", _BLOCKED,
+                       {**_PLANNER, **_DENSE, **_BLOCKS,
+                        "block_host": "block_score",
+                        **_in(None, "load", "plan", "dispatch", "dense",
+                              "host_score")},
+                       _COUNTS | {"plan_passes"}),
+    "blocked_all_host": (dict(host_frac=1.0),
+                         {"LIME_HBM_BUDGET": "1", **_OFFLOAD}, "blocked",
+                         _BLOCKED,
+                         {**_DENSE, **_BLOCKS, "block_host": "block_score",
+                          **_in(None, "load", "plan", "dispatch", "dense",
+                                "host_score")},
+                         _COUNTS),
+}
+
+
+@pytest.mark.parametrize("case", list(_RECORDS))
+def test_run_record_shape_per_engine(conserved, tmp_path, monkeypatch, case):
+    """Each engine's ``LAST_RUN``: its keys, every phase with its parent
+    and its counts labels (what the benchmark's per-layer metrics read)."""
+    kw, env, engine, keys, parents, counts = _RECORDS[case]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ds = conserved
+    run_paired(ds.collections, str(tmp_path / "out.csv"), *_args(ds),
+               FUSED.replace(mxu_dense_min=4, **kw), device="cpu")
+    rec = tfp.LAST_RUN
+    assert rec["engine"] == engine
+    assert set(rec) == keys
+    assert rec["parents"] == {**parents, "lineage": None, "csv": None}
+    assert set(rec["phases"]) == set(rec["parents"])
+    assert set(rec["counts"]) == counts
